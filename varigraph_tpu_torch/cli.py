@@ -1,0 +1,135 @@
+"""Command-line interface: ``python -m varigraph_tpu_torch genotype``.
+
+The genotype subcommand of ``varigraph_tpu/cli.py`` (itself mirroring the
+reference's main.cpp:238-445), plus ``--device``.  Construct is not ported
+yet: build graphs with ``python -m varigraph_tpu construct``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from . import __version__
+from .config import VarigraphConfig
+from .utils.log import log
+from .utils.timing import report
+
+
+def _add_genotype(sub):
+    p = sub.add_parser(
+        "genotype",
+        help="Perform genotyping and phasing based on k-mer counting.",
+    )
+    p.add_argument("--load-graph", default="graph.vgt", metavar="FILE",
+                   help="load Genome Graph index from file [graph.vgt]")
+    p.add_argument("-s", "--samples", required=True, metavar="FILE",
+                   help="samples configuration file: sample r1.fq.gz r2.fq.gz")
+    p.add_argument("-g", "--genotype", default="het", choices=["hom", "het"],
+                   help="sample genotype: hom or het [het]")
+    p.add_argument("--sample-ploidy", type=int, default=2, metavar="INT",
+                   help="sample ploidy (2-8) [2]")
+    p.add_argument("-n", "--number", type=int, default=15, metavar="INT",
+                   help="the haploid number for genotyping [15]")
+    p.add_argument("--granularity", type=float, default=1.0, metavar="FLOAT",
+                   help="chromosome window length per task (Mb) [1]")
+    p.add_argument("-m", "--mode", default="rec", choices=["fre", "rec"],
+                   help="transition probability: haplotype frequency (fre) or "
+                        "recombination rate (rec) [rec]")
+    p.add_argument("--sv", action="store_true",
+                   help="structural variation genotyping only")
+    p.add_argument("--min-support", type=float, default=0.0, metavar="FLOAT",
+                   help="minimum site quality (GQ) for genotype [0]")
+    p.add_argument("--use-depth", action="store_true",
+                   help="use sequencing depth as the homozygous k-mer depth")
+    p.add_argument("--seed", type=int, default=0,
+                   help="deterministic seed for haplotype sampling [0]")
+    p.add_argument("--engine", default="torch", choices=["torch", "np"],
+                   help="genotyping engine: device (torch) or host oracle (np) "
+                        "[torch]")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device for counting and scoring; cuda fails "
+                        "when no CUDA device is present [cuda]")
+    p.add_argument("--out-dir", default=".", metavar="DIR",
+                   help="output directory for <sample>.varigraph.vcf.gz [.]")
+    p.add_argument("--save-counts", default="", metavar="FILE",
+                   help="save the counted-reads state after counting "
+                        "(single-sample runs)")
+    p.add_argument("--load-counts", default="", metavar="FILE",
+                   help="load a counted-reads state and skip counting "
+                        "(single-sample runs)")
+    p.add_argument("-t", "--threads", type=int, default=10, metavar="INT",
+                   help="FASTQ files read concurrently [10]")
+    p.add_argument("-D", "--debug", action="store_true")
+    p.add_argument("--batch-size", type=int, default=0, metavar="INT",
+                   help="reads per device batch (0 = auto) [16384]")
+    p.add_argument("--max-read-len", type=int, default=0, metavar="INT",
+                   help="padded read length per device batch; longer reads "
+                        "split with k-1 overlap (0 = auto) [160]")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="varigraph-tpu-torch",
+        description="Genotyping and phasing based on k-mer counting "
+                    "(PyTorch/CUDA port).",
+    )
+    parser.add_argument("--version", action="version", version=__version__)
+    sub = parser.add_subparsers(dest="command")
+    _add_genotype(sub)
+    args = parser.parse_args(argv)
+
+    if args.command is None:
+        parser.print_help(sys.stderr)
+        return 1
+
+    log(f"You are now running varigraph-tpu-torch (v{__version__}).", func="main")
+    log("Execution started ...", func="main")
+
+    cfg = VarigraphConfig(
+        input_graph_file=args.load_graph,
+        samples_config_file=args.samples,
+        sample_type=args.genotype,
+        sample_ploidy=max(args.sample_ploidy, 2),
+        haploid_num=args.number,
+        granularity_bp=int(args.granularity * 1e6),
+        transition_pro_type=args.mode,
+        sv_genotype_only=args.sv,
+        min_supporting_gq=args.min_support,
+        use_depth=args.use_depth,
+        seed=args.seed,
+        save_counts_file=args.save_counts,
+        load_counts_file=args.load_counts,
+        engine=args.engine,
+        device=args.device,
+        threads=max(args.threads, 1),
+        debug=args.debug,
+    )
+    if args.batch_size > 0:
+        cfg.read_batch_size = args.batch_size
+    if args.max_read_len > 0:
+        cfg.max_read_len = args.max_read_len
+    cfg.validate_genotype()
+    cfg.log_genotype()
+
+    from .genotype.pipeline import run_genotype
+
+    run_genotype(cfg, out_dir=args.out_dir)
+
+    log("Done ...", func="main")
+    sys.stderr.write(report("varigraph-tpu-torch") + "\n")
+    return 0
+
+
+def run() -> int:
+    """Entry point with the reference's log-and-exit(1) error policy."""
+    try:
+        return main()
+    except (ValueError, FileNotFoundError, OSError) as e:
+        log(f"Error: {e}", func="main")
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(run())

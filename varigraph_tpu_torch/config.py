@@ -1,0 +1,105 @@
+"""Run configuration for the genotype phase.
+
+Mirrors the genotype half of the JAX package's VarigraphConfig (itself the
+reference's VarigraphConfig, include/varigraph.hpp:26-103, defaults at
+:49-68), plus ``device`` and ``engine``.  Construct is not ported yet: graphs
+come from ``python -m varigraph_tpu construct``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .utils.log import log
+
+
+@dataclass
+class VarigraphConfig:
+    # ---- input/output ----
+    samples_config_file: str = ""  # -s: "sample r1.fq.gz r2.fq.gz" lines
+    input_graph_file: str = "graph.vgt"  # --load-graph
+
+    # ---- graph parameters (overridden by the loaded graph) ----
+    kmer_len: int = 27
+    vcf_ploidy: int = 2
+
+    # ---- algorithm (genotype) ----
+    sample_type: str = "het"  # -g: hom | het
+    sample_ploidy: int = 2  # --sample-ploidy, 2..8
+    haploid_num: int = 15  # -n: haplotypes used per window
+    granularity_bp: int = 1_000_000  # --granularity (Mb -> bp)
+    transition_pro_type: str = "rec"  # -m: rec | fre
+    sv_genotype_only: bool = False  # --sv
+    min_supporting_gq: float = 0.0  # --min-support
+    use_depth: bool = False  # --use-depth
+
+    # ---- runtime ----
+    debug: bool = False  # -D
+    threads: int = 10  # -t (FASTQ files decompressed concurrently)
+    seed: int = 0  # deterministic seed for the Dirichlet draws
+    engine: str = "torch"  # "torch" (device) | "np" (host oracle)
+    device: str = "cuda"  # torch device of the table and the scoring tensors
+
+    # ---- read batching (no reference counterpart) ----
+    read_batch_size: int = 16384  # reads per device batch
+    max_read_len: int = 160  # padded read length per batch
+    # counted-reads checkpoint (single-sample runs): skip or persist counting
+    load_counts_file: str = ""
+    save_counts_file: str = ""
+
+    # -------------------------------------------------------------- validation
+    def validate_genotype(self) -> None:
+        if not self.input_graph_file:
+            raise ValueError("--load-graph cannot be empty")
+        if not self.samples_config_file:
+            raise ValueError("samples configuration file (-s) cannot be empty")
+        if self.sample_type not in ("hom", "het"):
+            raise ValueError("-g must be 'hom' or 'het'")
+        if not (2 <= self.sample_ploidy <= 8):
+            raise ValueError("--sample-ploidy must be between 2 and 8")
+        if self.haploid_num == 0:
+            raise ValueError("-n must be greater than 0")
+        if self.haploid_num < 10:
+            log("Parameter warning: -n is relatively low; genotyping accuracy may drop.")
+        if self.granularity_bp < 1:
+            raise ValueError("--granularity must be >= 1 bp")
+        if self.transition_pro_type not in ("fre", "rec"):
+            raise ValueError("-m must be 'fre' or 'rec'")
+        if self.engine not in ("torch", "np"):
+            raise ValueError("--engine must be 'torch' or 'np'")
+        self.torch_device()
+
+    def torch_device(self) -> torch.device:
+        """The run's torch.device.  A run that asks for CUDA on a machine
+        without it fails here; it never carries on on the CPU."""
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError("--device must be 'cuda' or 'cpu'")
+        if self.device == "cuda" and not torch.cuda.is_available():
+            raise ValueError(
+                "--device cuda was requested but torch finds no CUDA device "
+                "(pass --device cpu to run on the CPU)"
+            )
+        return torch.device(self.device)
+
+    # ---------------------------------------------------------------- logging
+    def log_genotype(self) -> None:
+        log(f"Number of threads: {self.threads}")
+        log(f"Genome graph file: {self.input_graph_file}")
+        log(f"Sample configuration file: {self.samples_config_file}")
+        log(f"Sample genome status: {self.sample_type}")
+        log(f"Sample ploidy: {self.sample_ploidy}")
+        log(f"Number of haploids for genotyping: {self.haploid_num}")
+        log(f"Chromosome granularity: {self.granularity_bp} bp")
+        log(f"Transition probability type: {self.transition_pro_type}")
+        log(f"Structural variation genotyping only: "
+            f"{'Enabled' if self.sv_genotype_only else 'Disabled'}")
+        log(f"Minimum site quality (GQ): {self.min_supporting_gq}")
+        log(f"Use sequencing depth for homozygous k-mers: "
+            f"{'Enabled' if self.use_depth else 'Disabled'}")
+        log(f"Genotyping engine: {self.engine}")
+        log(f"Device: {self.device}")
+        log(f"Device read batch: {self.read_batch_size} reads x "
+            f"{self.max_read_len} bp")
+        log(f"Deterministic seed: {self.seed}")
