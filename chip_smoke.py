@@ -7,7 +7,8 @@ Needs one CUDA card, nvcc (under $CUDA_HOME or /usr/local/cuda) and this
 checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the kernel build (csrc/join.cu with nvcc), timed;
+  2. the kernel builds (csrc/join.cu and csrc/cbf.cu, one nvcc each, started
+     together), timed;
   3. the counting join kernel against its plain torch version on the card,
      exactly equal on edge cases, then both timed at the main path's batch
      shape (16384 reads x 134 query slots) against the test graph's table
@@ -19,9 +20,27 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      genotypes must agree with the VCF's truth at >= 99% of the sites;
   5. parity on the card: a recount with the plain join gives the kernel's
      coverage exactly, and the host oracle engine (engine_np) on the same
-     counts gives the same GT at every site with GPP within 2e-3.
+     counts gives the same GT at every site with GPP within 2e-3;
+  6. construct on the card: ``cli.main(["construct", ..., "--device",
+     "cuda"])`` on the fixture's inputs (k = 27, seed 0) must write a .vgt
+     whose every member equals the committed, JAX-built graph.vgt; the
+     filter kernels must have launched; genotyping the port-built graph must
+     agree with the truth at >= 99% of the sites;
+  7. the Bloom filter kernels against their plain torch version on the card,
+     filter bytes and counts exactly equal on edge cases, then both timed at
+     one genome batch (16384 x 134 keys, kh = 7) at m = 2^25 and 2^30;
+  8. the exact-count regime (``_CBF_DEVICE_MAX`` set to 1): construct must
+     launch the join, and every count it fed the table must equal the same
+     counter run with the plain join on the card;
+  9. construct at a realistic size: a 100 Mb, 2-chromosome genome and a VCF
+     of 50,000 sites x 50 samples (tools/gen_big.py's generators), a
+     2^30-cell (1 GiB) filter on the card; phase times, table checks, the
+     file read back, and the kernel's filter equal to the plain version's
+     after the first 32 genome batches.
 
-Prints, before its last line, the kernels' JSON summary; its last line is
+Each main path runs with the launch counts set to 0 just before it and read
+just after.  Prints, before its last line, the kernels' JSON summary (launches
+summed over the main paths); its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -29,6 +48,8 @@ is present.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import gzip
 import io
@@ -44,6 +65,7 @@ import time
 import numpy as np
 import torch
 
+import varigraph_tpu_torch.index.build as build_mod
 from varigraph_tpu_torch.cli import main as cli_main
 from varigraph_tpu_torch.config import VarigraphConfig
 from varigraph_tpu_torch.genotype.counting import count_reads
@@ -52,11 +74,19 @@ from varigraph_tpu_torch.genotype.engine_np import genotype_np, graph2node
 from varigraph_tpu_torch.genotype.engine_torch import genotype_torch
 from varigraph_tpu_torch.genotype.pipeline import load_counts
 from varigraph_tpu_torch.index.serialize import load_graph
-from varigraph_tpu_torch.ops import join_cuda
+from varigraph_tpu_torch.io.fasta import read_fasta
+from varigraph_tpu_torch.ops import cbf_cuda, join_cuda
+from varigraph_tpu_torch.ops.cbf import (CountingBloomFilter, cbf_add_plain,
+                                         cbf_count_plain, make_seeds)
+from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
+from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
+from varigraph_tpu_torch.ops.kmer import sketch_codes
 from varigraph_tpu_torch.ops.table import count_join
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import gen_big  # noqa: E402
 from data_gen import apply_haplotype, make_reads, write_fastq  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "slice2m")
@@ -69,6 +99,12 @@ DEPTH, READ_LEN = 20.0, 150
 MIN_GT_AGREEMENT = 0.99
 GPP_TOL = 2e-3   # the JAX package's engine parity tolerance
 TIMING_RUNS = 7
+# construct at a realistic size (phase 9): the JAX package's 100 Mb rehearsal
+BIG_MB, BIG_CHROMS, BIG_SITES, BIG_SAMPLES, BIG_SEED = 100, 2, 50_000, 50, 7
+BIG_FILTER_CELLS = 1 << 30                     # 1 GiB of counters at 100 Mb
+GENOME_BATCH_KEYS = 16384 * (160 - (K - 1))   # one genome batch, 2,195,456
+CBF_TIMING_KH = 7                              # kh of the 2^30 filter
+FILTER_CHECK_BATCHES = 32
 
 
 def fail(msg: str) -> None:
@@ -146,46 +182,37 @@ def check_join(kernel, plain, device) -> int:
     return worst
 
 
-def time_join(fn, keys, q, m, runs=TIMING_RUNS) -> float:
-    """Median ms of one join call, timed with CUDA events."""
-    cov = torch.zeros(keys.numel(), dtype=torch.int32, device=keys.device)
-    fn(cov, keys, q, m)  # warm-up
+def time_ms(call, before=None, runs=TIMING_RUNS) -> float:
+    """Median ms of one ``call()``, timed with CUDA events after a warm-up;
+    ``before()`` runs ahead of each timed call, outside the timing."""
+    call()
     times = []
     for _ in range(runs):
-        cov.zero_()
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        fn(cov, keys, q, m)
+        call()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
+def time_join(fn, keys, q, m) -> float:
+    """Median ms of one join call."""
+    cov = torch.zeros(keys.numel(), dtype=torch.int32, device=keys.device)
+    return time_ms(lambda: fn(cov, keys, q, m), before=cov.zero_)
+
+
 # ----------------------------------------------------------------- phase 4
-
-def read_fasta_gz(path: str) -> dict[str, str]:
-    genome, name, parts = {}, None, []
-    with gzip.open(path, "rt") as fh:
-        for line in fh:
-            line = line.strip()
-            if line.startswith(">"):
-                if name is not None:
-                    genome[name] = "".join(parts)
-                name, parts = line[1:].split()[0], []
-            elif line:
-                parts.append(line)
-    if name is not None:
-        genome[name] = "".join(parts)
-    return genome
-
 
 def simulate_reads(workdir: str, sample: str = "S1") -> tuple[str, str]:
     """Writes reads drawn from the sample's two haplotypes of the fixture
     and a samples.cfg; returns (cfg path, FASTQ path)."""
-    genome = read_fasta_gz(os.path.join(FIXTURE, "ref.fa.gz"))
+    genome = read_fasta(os.path.join(FIXTURE, "ref.fa.gz"))[0]
     with gzip.open(os.path.join(FIXTURE, "vars.vcf.gz"), "rt") as fh:
         vcf_text = fh.read()
     haps = [apply_haplotype(genome, vcf_text, sample, h) for h in (0, 1)]
@@ -251,19 +278,25 @@ class _Tee(io.TextIOBase):
         self.stream.flush()
 
 
-def run_main_path(device_name: str, workdir: str, cfg: str,
-                  counts: str) -> tuple[str, str]:
-    """Runs the genotype CLI; returns (VCF path, its log)."""
-    out_dir = os.path.join(workdir, "out")
+def run_cli(argv: list[str]) -> str:
+    """Runs the port's CLI; returns its log."""
     tee = _Tee(sys.stderr)
     with contextlib.redirect_stderr(tee):
-        rc = cli_main(["genotype", "--load-graph",
-                       os.path.join(FIXTURE, "graph.vgt"), "-s", cfg,
-                       "--out-dir", out_dir, "--device", device_name,
-                       "--save-counts", counts])
+        rc = cli_main(argv)
     if rc != 0:
-        fail(f"genotype CLI returned {rc}")
-    return os.path.join(out_dir, "S1.varigraph.vcf.gz"), tee.buf.getvalue()
+        fail(f"{argv[0]} CLI returned {rc}")
+    return tee.buf.getvalue()
+
+
+def run_main_path(device_name: str, workdir: str, cfg: str, counts: str,
+                  graph: str = os.path.join(FIXTURE, "graph.vgt"),
+                  out_name: str = "out") -> tuple[str, str]:
+    """Runs the genotype CLI; returns (VCF path, its log)."""
+    out_dir = os.path.join(workdir, out_name)
+    log_text = run_cli(["genotype", "--load-graph", graph, "-s", cfg,
+                        "--out-dir", out_dir, "--device", device_name,
+                        "--save-counts", counts])
+    return os.path.join(out_dir, "S1.varigraph.vcf.gz"), log_text
 
 
 def phase_timings(log_text: str) -> dict[str, float]:
@@ -306,6 +339,317 @@ def engine_parity(gi, cfg, hap_cov, device):
     return len(res_n), mism, gpp
 
 
+# ----------------------------------------------------------------- phase 6
+
+def compare_vgt(path: str, want: str) -> int:
+    """Prints and returns the number of .vgt members that differ in dtype,
+    shape or value (meta compared as parsed JSON: the zip bytes carry
+    timestamps)."""
+    with np.load(path) as a, np.load(want) as b:
+        if sorted(a.files) != sorted(b.files):
+            fail(f"member sets differ: {sorted(a.files)} vs {sorted(b.files)}")
+        differ = 0
+        for name in a.files:
+            x, y = a[name], b[name]
+            if name == "meta":
+                same = json.loads(bytes(x)) == json.loads(bytes(y))
+            else:
+                same = (x.dtype == y.dtype and x.shape == y.shape
+                        and np.array_equal(x, y))
+            if not same:
+                print(f"  member {name} differs")
+                differ += 1
+        print(f"  {len(a.files) - differ} of {len(a.files)} members equal")
+        return differ
+
+
+def construct_timings(log_text: str) -> dict[str, float]:
+    t = {}
+    for name, pat in (("vcf parse", r"phase timing: vcf parse ([\d.]+)s"),
+                      ("walk", r"phase timing: walk ([\d.]+)s"),
+                      ("genome counts", r"phase timing: genome counts ([\d.]+)s"),
+                      ("index", r"phase timing: index ([\d.]+)s"),
+                      ("graph2node", r"graph2node precomputed \(([\d.]+)s\)"),
+                      ("save", r"graph write complete \(([\d.]+)s\)")):
+        m = re.search(pat, log_text)
+        if not m:
+            fail(f"no '{name}' timing in the construct log")
+        t[name] = float(m.group(1))
+    for m in re.finditer(r"aggregation: (.*) \(([\d.]+)s\)$", log_text, re.M):
+        t["index: " + m.group(1)] = float(m.group(2))
+    return t
+
+
+def print_timings(t: dict[str, float], wall: float) -> None:
+    for k, v in t.items():
+        print(f"    {k}: {v:.2f} s")
+    print(f"    CLI wall: {wall:.2f} s")
+
+
+def construct(ref: str, vcf: str, out: str) -> tuple[str, float]:
+    """Runs the construct CLI on the card; returns (log, wall seconds)."""
+    t0 = time.perf_counter()
+    log_text = run_cli(["construct", "-r", ref, "-v", vcf, "-k", str(K),
+                        "--seed", "0", "--device", "cuda", "--save-graph", out])
+    return log_text, time.perf_counter() - t0
+
+
+# ----------------------------------------------------------------- phase 7
+
+def _genome_batch(codes: torch.Tensor):
+    """Sketch one genome batch; returns its (keys, mask) as the construct
+    path hands them to the filter (first k-1 columns dropped)."""
+    values, emit = sketch_codes(codes, K)
+    return (values[:, K - 1:].reshape(-1).contiguous(),
+            emit[:, K - 1:].reshape(-1).contiguous())
+
+
+def cbf_cases(device, fixture_genome: dict[str, str]):
+    """(name, m, kh, [(keys, mask) adds], queries) edge cases the kernels
+    must get exactly right."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    rnd = _kmer_values(200_000, gen, device)
+    ones = torch.ones(rnd.shape, dtype=torch.bool, device=device)
+    m25 = 1 << 25
+    yield ("random keys, 90% mask", m25, 12,
+           [(rnd, torch.rand(rnd.shape, generator=gen, device=device) < 0.9)], rnd)
+    k28 = _kmer_values(100_000, gen, device, span=28)
+    k28[::2] |= -(1 << 63)
+    yield "keys with bit 63 set", m25, 12, [(k28, ones[:k28.numel()])], k28
+    yield "all masked", m25, 12, [(rnd, torch.zeros_like(ones))], rnd
+    yield "N = 0", m25, 12, [(rnd[:0], ones[:0])], rnd[:0]
+    one = rnd[:1].repeat(300)
+    yield "one key added 300 times", m25, 12, [(one, ones[:300])], rnd[:2]
+    n = sum(len(s) for s in fixture_genome.values()) - K + 1
+    bf = CountingBloomFilter(n, 0.01, 0)  # the fixture's sizing (host-side)
+    seq = next(iter(fixture_genome.values()))
+    batch = next(build_mod.segment_genome_batches(seq, K))
+    keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
+    yield ("one genome batch of the fixture", bf.size, bf.num_hashes,
+           [(keys, mask)], keys)
+
+
+def _max_abs_diff_u8(a: torch.Tensor, b: torch.Tensor) -> int:
+    """max |a - b| of two uint8 tensors, without widening a 1 GiB filter."""
+    if not a.numel():
+        return 0
+    return int((torch.maximum(a, b) - torch.minimum(a, b)).max())
+
+
+def check_cbf(device, fixture_genome) -> int:
+    """Kernels against plain on every case; returns the max abs difference
+    of filter bytes and counts (must be 0)."""
+    worst = 0
+    for name, m, kh, adds, queries in cbf_cases(device, fixture_genome):
+        seeds = CountingBloomFilter._seed_tensor(make_seeds(kh, 0), device)
+        fa = torch.zeros(m, dtype=torch.uint8, device=device)
+        fb = torch.zeros_like(fa)
+        for keys, mask in adds:
+            cbf_cuda.cbf_add_(fa, keys, mask, seeds)
+            cbf_add_plain(fb, keys, mask, seeds)
+        ca = cbf_cuda.cbf_count(fa, queries, seeds)
+        cb = cbf_count_plain(fb, queries, seeds)
+        torch.cuda.synchronize(device)
+        err = max(int((fa.int() - fb.int()).abs().max()),
+                  int((ca.int() - cb.int()).abs().max()) if ca.numel() else 0)
+        print(f"  cbf case {name}: m=2^{m.bit_length() - 1} kh={kh} "
+              f"N={sum(k.numel() for k, _ in adds)} nonzero={int(fa.count_nonzero())} "
+              f"max count={int(ca.max()) if ca.numel() else 0} max_abs_err={err}")
+        if err:
+            fail(f"filter kernels disagree with plain on case '{name}'")
+        if name.startswith("one key added") and ca[0].item() != 255:
+            fail("a key added 300 times did not saturate at 255")
+        worst = max(worst, err)
+    return worst
+
+
+def time_cbf(device) -> tuple[dict[str, tuple[float, float]], int]:
+    """Kernel and plain ms of add and count at one genome batch's shape,
+    kh = 7, at m = 2^25 and 2^30: plain, kernel, kernel, plain.  Before
+    timing, holds the kernels' filter bytes and counts against plain at
+    that shape; returns (times, max abs difference)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    codes = torch.randint(0, 4, (BATCH, READ_LEN_PAD), generator=gen,
+                          device=device, dtype=torch.uint8)
+    keys, mask = _genome_batch(codes)
+    seeds = CountingBloomFilter._seed_tensor(make_seeds(CBF_TIMING_KH, 0), device)
+    out, worst = {}, 0
+    for log2m in (25, 30):
+        filt = torch.zeros(1 << log2m, dtype=torch.uint8, device=device)
+        ref = torch.zeros_like(filt)
+        cbf_cuda.cbf_add_(filt, keys, mask, seeds)
+        cbf_add_plain(ref, keys, mask, seeds)
+        ca = cbf_cuda.cbf_count(filt, keys, seeds)
+        cb = cbf_count_plain(ref, keys, seeds)
+        err = max(_max_abs_diff_u8(filt, ref), _max_abs_diff_u8(ca, cb))
+        print(f"  cbf at m=2^{log2m}, {keys.numel()} keys x kh {CBF_TIMING_KH}: "
+              f"kernel vs plain max_abs_err {err}")
+        if err:
+            fail(f"filter kernels disagree with plain at m=2^{log2m}")
+        worst = max(worst, err)
+        del ref
+        fns = {
+            "add": (lambda: cbf_cuda.cbf_add_(filt, keys, mask, seeds),
+                    lambda: cbf_add_plain(filt, keys, mask, seeds)),
+            "count": (lambda: cbf_cuda.cbf_count(filt, keys, seeds),
+                      lambda: cbf_count_plain(filt, keys, seeds)),
+        }
+        for op, (kernel, plain) in fns.items():
+            p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                              time_ms(plain))
+            kms, pms = min(k1, k2), min(p1, p2)
+            out[f"{op} m=2^{log2m}"] = (kms, pms)
+            print(f"  cbf {op} at m=2^{log2m}, {keys.numel()} keys x kh "
+                  f"{CBF_TIMING_KH}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+                  f"{p1:.4f}/{p2:.4f} ms; kernel {keys.numel() / kms / 1e3:.1f}M "
+                  f"keys/s")
+        del filt
+    return out, worst
+
+
+# ----------------------------------------------------------------- phase 8
+
+def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
+    """Construct in the exact-count regime; returns (launches, max abs
+    difference of the kernel's counts from the plain join's)."""
+    fed = []
+
+    class Recording(ExactGenomeCounter):
+        def count(self, hashes):
+            counts = super().count(hashes)
+            fed.append((np.array(hashes, np.uint64), counts))
+            return counts
+
+    out = os.path.join(work, "exact.vgt")
+    saved = build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter
+    build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = 1, Recording
+    try:
+        LAUNCHES.clear()
+        log_text, wall = construct(os.path.join(FIXTURE, "ref.fa.gz"),
+                                   os.path.join(FIXTURE, "vars.vcf.gz"), out)
+        launches = dict(LAUNCHES)
+    finally:
+        build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = saved
+    print(f"  launches {launches}; construct CLI wall {wall:.2f} s")
+    if not launches.get("count_join") or launches.get("cbf_add"):
+        fail("the exact regime did not count through the join kernel alone")
+    if len(fed) != 1:
+        fail(f"the exact counter was queried {len(fed)} times, not once")
+    queries, counts = fed[0]
+    plain = ExactGenomeCounter(genome, K, device=device,
+                               join=count_join).count(queries)
+    err = int(np.abs(counts.astype(np.int64) - plain.astype(np.int64)).max())
+    with np.load(out) as z, np.load(os.path.join(FIXTURE, "graph.vgt")) as c:
+        keys = z["tbl_keys"]
+        covered = np.isin(keys, queries).all()
+        print(f"  {len(queries)} candidate k-mers counted, kernel vs plain join "
+              f"max_abs_err {err}; {len(keys)} table keys, all among them: "
+              f"{covered}; the filter-regime table has {len(c['tbl_keys'])} keys, "
+              f"{int(np.isin(keys, c['tbl_keys']).sum())} shared")
+    if err or not covered:
+        fail("exact genome counts differ between the join kernel and plain")
+    return launches, err
+
+
+# ----------------------------------------------------------------- phase 9
+
+def make_big_inputs(work: str) -> tuple[str, str]:
+    """A BIG_MB Mb genome of BIG_CHROMS chromosomes and a VCF of BIG_SITES
+    sites x BIG_SAMPLES samples, from tools/gen_big.py's seeded generators
+    (no reads)."""
+    rng = np.random.default_rng(BIG_SEED)
+    names = [f"S{i + 1}" for i in range(BIG_SAMPLES)]
+    chrom_len = BIG_MB * 1_000_000 // BIG_CHROMS
+    ref, vcf = os.path.join(work, "big.fa"), os.path.join(work, "big.vcf.gz")
+    parts = []
+    with open(ref, "w") as fh:
+        for ci in range(BIG_CHROMS):
+            chrom = f"chr{ci + 1}"
+            genome = gen_big.make_genome(rng, chrom_len)
+            text = genome.tobytes().decode()
+            fh.write(f">{chrom}\n")
+            for j in range(0, len(text), 10_000_000):
+                fh.write(text[j:j + 10_000_000] + "\n")
+            pos, ref_lens, alt_lens, gts = gen_big.make_sites(
+                rng, chrom_len, BIG_SITES // BIG_CHROMS, 2 * BIG_SAMPLES)
+            part = os.path.join(work, f"big_{chrom}.vcf.gz")
+            gen_big.write_vcf(part, chrom, genome, pos, ref_lens, alt_lens, gts,
+                              rng, names)
+            parts.append(part)
+    with gzip.open(vcf, "wb", compresslevel=1) as out:
+        for i, part in enumerate(parts):
+            with gzip.open(part, "rb") as fh:
+                for line in fh:
+                    if i == 0 or not line.startswith(b"#"):
+                        out.write(line)
+    return ref, vcf
+
+
+def check_big_filter(device, ref: str, queries: torch.Tensor) -> int:
+    """The kernel's filter against the plain version's after the first
+    FILTER_CHECK_BATCHES genome batches, at the construct's sizing, and the
+    kernel's counts of ``queries`` (the table's keys) read from it against
+    the plain counts; returns the max abs difference of bytes and counts."""
+    genome, _, size = read_fasta(ref)
+    kern = CountingBloomFilter(size - K + 1, 0.01, 0, device=device)
+    plain = torch.zeros_like(kern.filter)
+    batches = (b for seq in genome.values()
+               for b in build_mod.segment_genome_batches(seq, K))
+    n = 0
+    for batch in batches:
+        keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
+        kern.add(keys, mask)
+        cbf_add_plain(plain, keys, mask, kern.seeds_t)
+        n += 1
+        if n == FILTER_CHECK_BATCHES:
+            break
+    differ = int((kern.filter != plain).sum())
+    ca = cbf_cuda.cbf_count(kern.filter, queries, kern.seeds_t)
+    cb = cbf_count_plain(plain, queries, kern.seeds_t)
+    err = max(_max_abs_diff_u8(kern.filter, plain), _max_abs_diff_u8(ca, cb))
+    print(f"  filter m={kern.size} kh={kern.num_hashes}: kernel vs plain after "
+          f"{n} genome batches, {differ} counters differ, "
+          f"{int(plain.count_nonzero())} nonzero; counts of the {queries.numel()} "
+          f"table keys read from it: {int((ca != cb).sum())} differ, "
+          f"{int(ca.count_nonzero())} nonzero; max_abs_err {err}")
+    return err
+
+
+def phase_big(device, work: str) -> tuple[dict, int]:
+    """Construct at BIG_MB Mb; returns (launches, the filter kernels' max
+    abs difference from plain at the construct's 2^30 cells)."""
+    t0 = time.perf_counter()
+    ref, vcf = make_big_inputs(work)
+    print(f"  generated {BIG_MB} Mb x {BIG_CHROMS} chromosomes, {BIG_SITES} sites x "
+          f"{BIG_SAMPLES} samples in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(work, "big.vgt")
+    LAUNCHES.clear()
+    log_text, wall = construct(ref, vcf, out)
+    launches = dict(LAUNCHES)
+    print(f"  launches {launches}")
+    if not launches.get("cbf_add") or not launches.get("cbf_count"):
+        fail(f"the {BIG_MB} Mb construct did not launch the filter kernels")
+    m = re.search(r"Counting Bloom Filter size: (\d+)", log_text)
+    if not m or int(m.group(1)) != BIG_FILTER_CELLS:
+        fail(f"the {BIG_MB} Mb construct did not use a {BIG_FILTER_CELLS}-cell "
+             "filter")
+    print("  construct phase timings:")
+    print_timings(construct_timings(log_text), wall)
+    gi = load_graph(out, device=device)
+    keys = gi.table.keys_np()
+    freq = gi.table.freq_np()
+    ok = (len(keys) > 0 and bool((keys[1:] > keys[:-1]).all())
+          and bool((freq >= 1).all()) and gi.table.keys.device == device)
+    print(f"  read back: {len(keys)} table keys, unique and sorted, freq >= 1: "
+          f"{ok}; {gi.nhap} haplotypes; {os.path.getsize(out) / 1e6:.1f} MB file")
+    if not ok:
+        fail(f"the {BIG_MB} Mb table is not unique, sorted and freq >= 1")
+    err = check_big_filter(device, ref, gi.table.keys)
+    if err:
+        fail(f"the filter kernels disagree with plain on the {BIG_MB} Mb genome")
+    return launches, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -325,11 +669,16 @@ def main() -> int:
     print(f"  torch device: {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    print("== 2. kernel build")
-    t0 = time.perf_counter()
-    join_cuda.build()
-    print(f"  built {os.path.relpath(join_cuda.LIBRARY, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print("== 2. kernel builds (one nvcc per source, started together)")
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for lib, secs in pool.map(timed_build, (join_cuda, cbf_cuda)):
+            print(f"  built {lib} in {secs:.2f} s")
 
     print("== 3. join kernel against plain torch (tolerance: exactly equal "
           "integer counts)")
@@ -368,11 +717,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         cfg_path, fq = simulate_reads(work)
         counts = os.path.join(work, "counts.npz")
-        join_cuda.LAUNCHES.clear()
+        LAUNCHES.clear()
         t0 = time.perf_counter()
         vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
         wall = time.perf_counter() - t0
-        launches = join_cuda.LAUNCHES["count_join"]
+        main_launches = collections.Counter(LAUNCHES)
+        launches = LAUNCHES["count_join"]
         m = re.search(r"Processed (\d+) batches, [\d.]+ Gb \(table on (\S+)\)",
                       log_text)
         if not m:
@@ -417,18 +767,68 @@ def main() -> int:
         if mism or gpp > GPP_TOL:
             fail("torch engine disagrees with the np oracle")
 
+        print("== 6. main path: construct CLI on the card, against the "
+              "committed JAX-built graph")
+        port_vgt = os.path.join(work, "port.vgt")
+        LAUNCHES.clear()
+        log_text, wall = construct(os.path.join(FIXTURE, "ref.fa.gz"),
+                                   os.path.join(FIXTURE, "vars.vcf.gz"), port_vgt)
+        main_launches.update(LAUNCHES)
+        print(f"  launches {dict(LAUNCHES)}")
+        if not LAUNCHES["cbf_add"] or not LAUNCHES["cbf_count"]:
+            fail("construct did not launch the filter kernels")
+        print_timings(construct_timings(log_text), wall)
+        if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
+            fail("the port-built graph differs from the committed JAX-built one")
+        LAUNCHES.clear()
+        vcf, _ = run_main_path("cuda", work, cfg_path,
+                               os.path.join(work, "counts_port.npz"),
+                               graph=port_vgt, out_name="out_port_graph")
+        main_launches.update(LAUNCHES)
+        agree, sites = gt_agreement(vcf)
+        print(f"  genotype on the port-built graph: join launches "
+              f"{LAUNCHES['count_join']}; S1 GT agrees with the truth at "
+              f"{agree}/{sites} sites ({agree / sites:.4f})")
+        if not LAUNCHES["count_join"] or agree < MIN_GT_AGREEMENT * sites:
+            fail("genotyping the port-built graph fell below 99% or skipped "
+                 "the join")
+
+        print("== 7. filter kernels against plain torch (tolerance: exactly "
+              "equal bytes and counts)")
+        genome = read_fasta(os.path.join(FIXTURE, "ref.fa.gz"))[0]
+        cbf_err = check_cbf(device, genome)
+        cbf_times, e = time_cbf(device)
+        cbf_err = max(cbf_err, e)
+
+        print("== 8. main path: construct in the exact-count regime")
+        exact_launches, e = phase_exact(device, work, genome)
+        main_launches.update(exact_launches)
+        err = max(err, e)
+
+        print(f"== 9. main path: construct at {BIG_MB} Mb on the card")
+        big_launches, e = phase_big(device, work)
+        main_launches.update(big_launches)
+        cbf_err = max(cbf_err, e)
+
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
+    print(f"  main-path launches: {dict(main_launches)}")
     kms, pms = timings["test graph"]
-    print(json.dumps({"kernels": [{
-        "name": "count_join",
-        "route": "cuda",
-        "source": "varigraph_tpu_torch/csrc/join.cu",
+    source = "varigraph_tpu_torch/csrc/{}.cu"
+    kernels = [{
+        "name": "count_join", "route": "cuda", "source": source.format("join"),
         "replaces": "varigraph_tpu/ops/join_pallas.py:57",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": kms,
-        "plain_ms": pms,
-    }]}))
+        "launches": main_launches["count_join"], "max_abs_err": err,
+        "ms": kms, "plain_ms": pms,
+    }]
+    for name, op, line in (("cbf_add", "add", 146), ("cbf_count", "count", 162)):
+        kms, pms = cbf_times[f"{op} m=2^30"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source.format("cbf"),
+            "replaces": f"varigraph_tpu/ops/cbf.py:{line}",
+            "launches": main_launches[name], "max_abs_err": cbf_err,
+            "ms": kms, "plain_ms": pms,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

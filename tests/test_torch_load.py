@@ -107,7 +107,10 @@ def test_non_zip_graph_is_not_ported_yet(tmp_path):
 def test_cli_import_leaves_jax_out():
     code = ("import sys, varigraph_tpu_torch.cli, "
             "varigraph_tpu_torch.genotype.pipeline, "
-            "varigraph_tpu_torch.genotype.engine_torch; "
+            "varigraph_tpu_torch.genotype.engine_torch, "
+            "varigraph_tpu_torch.index.build, varigraph_tpu_torch.ops.cbf, "
+            "varigraph_tpu_torch.ops.cbf_cuda, "
+            "varigraph_tpu_torch.ops.exact_count; "
             "sys.exit('jax' in sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

@@ -12,7 +12,10 @@ CUDA start-up), then:
   * profiles count_reads and genotype_torch with torch.profiler and prints,
     for each, the wall time, the summed device time of its kernels and
     copies, the device's idle share (1 - device time / wall) and the top
-    operations by device time.
+    operations by device time;
+  * profiles construct the same way at the smoke's realistic size (a 100 Mb
+    genome and 50,000 sites x 50 samples, chip_smoke.make_big_inputs): the
+    whole of construct_graph_index, then its genome-count phase alone.
 
 The profiler adds host overhead to every operation, so its walls are upper
 bounds; the component times are taken without it.
@@ -37,7 +40,10 @@ from varigraph_tpu_torch.genotype.counting import count_reads  # noqa: E402
 from varigraph_tpu_torch.genotype.coverage import estimate_hap_coverage  # noqa: E402
 from varigraph_tpu_torch.genotype.engine_np import graph2node  # noqa: E402
 from varigraph_tpu_torch.genotype.engine_torch import genotype_torch  # noqa: E402
+from varigraph_tpu_torch.index.build import (  # noqa: E402
+    construct_graph_index, make_genome_cbf)
 from varigraph_tpu_torch.index.serialize import load_graph  # noqa: E402
+from varigraph_tpu_torch.io.fasta import read_fasta  # noqa: E402
 from varigraph_tpu_torch.io.fastq import stream_packed_batches_multi  # noqa: E402
 from varigraph_tpu_torch.ops.join_cuda import count_join_  # noqa: E402
 from varigraph_tpu_torch.ops.kmer import sketch_packed  # noqa: E402
@@ -121,6 +127,15 @@ def main() -> int:
             read_base[0] / gi.genome_size, cfg.use_depth)
         profiled("genotype_torch",
                  lambda: genotype_torch(gi, cfg, hap_cov, 0, device=dev))
+
+        print(f"== construct at {chip_smoke.BIG_MB} Mb")
+        ref, vcf = chip_smoke.make_big_inputs(work)
+        ccfg = VarigraphConfig(ref_file=ref, vcf_file=vcf, kmer_len=k,
+                               device="cuda")
+        profiled("construct_graph_index", lambda: construct_graph_index(ccfg))
+        genome, _, size = read_fasta(ref)
+        profiled("make_genome_cbf",
+                 lambda: make_genome_cbf(genome, size, k, 0, dev).occupancy())
     return 0
 
 

@@ -1,18 +1,23 @@
-"""varigraph-tpu on PyTorch and CUDA: the genotype phase from a saved graph.
+"""varigraph-tpu on PyTorch and CUDA: construct and genotype on one device.
 
 A port of the JAX package ``varigraph_tpu`` (which stays in the repository as
-the reference it is tested against) to PyTorch, with the read-counting join
-written by hand in CUDA for Hopper (sm_90a).  This package imports ``torch``
+the reference it is tested against) to PyTorch, with the counting join and
+the counting Bloom filter written by hand in CUDA for Hopper (sm_90a).  This package imports ``torch``
 and never ``jax``: the host-only numpy code it shares with the JAX package is
 copied, because importing any ``varigraph_tpu`` module imports jax.
 
-Slice ported so far -- ``genotype --load-graph G.vgt``:
+Ported so far, on one device:
+  ``construct -r ref.fa -v vars.vcf.gz --save-graph G.vgt``:
+  io/fasta.read_fasta -> index/graph.build_graph_from_vcf -> host context
+  walk -> genome counts (sketch in torch, the Bloom filter in
+  ``csrc/cbf.cu``, or above 2^31 cells an exact count through
+  ``csrc/join.cu``) -> context sketch, aggregation -> graph2node ->
+  index/serialize.save_graph, driven by index/build.construct_graph_index;
+  ``genotype --load-graph G.vgt``:
   index/serialize.load_graph -> genotype/counting.count_reads (sketch in
   torch, join in ``csrc/join.cu``) -> genotype/coverage.estimate_hap_coverage
   -> genotype/engine_torch.genotype_torch -> genotype/vcfout.write_vcf,
   driven by genotype/pipeline.run_genotype.
-
-Graphs are still built by ``python -m varigraph_tpu construct``.
 
 Integer conventions: k-mer encodings are uint64 values carried as int64 bit
 patterns (torch on the CPU has no uint64 shifts, comparisons or search).

@@ -1,9 +1,8 @@
-"""Run configuration for the genotype phase.
+"""Run configuration for both pipeline phases.
 
-Mirrors the genotype half of the JAX package's VarigraphConfig (itself the
-reference's VarigraphConfig, include/varigraph.hpp:26-103, defaults at
-:49-68), plus ``device`` and ``engine``.  Construct is not ported yet: graphs
-come from ``python -m varigraph_tpu construct``.
+Mirrors the JAX package's VarigraphConfig (itself the reference's
+VarigraphConfig, include/varigraph.hpp:26-103, defaults at :49-68), plus
+``device`` and ``engine``.
 """
 
 from __future__ import annotations
@@ -18,12 +17,17 @@ from .utils.log import log
 @dataclass
 class VarigraphConfig:
     # ---- input/output ----
+    ref_file: str = ""  # -r: reference FASTA (may be gzipped)
+    vcf_file: str = ""  # -v: population VCF (may be gzipped)
     samples_config_file: str = ""  # -s: "sample r1.fq.gz r2.fq.gz" lines
     input_graph_file: str = "graph.vgt"  # --load-graph
+    output_graph_file: str = "graph.vgt"  # --save-graph
 
-    # ---- graph parameters (overridden by the loaded graph) ----
-    kmer_len: int = 27
-    vcf_ploidy: int = 2
+    # ---- algorithm (construct; genotype reads k and ploidy from the graph) ----
+    kmer_len: int = 27  # -k, clamp [5, 28] (main.cpp:131,187-191)
+    vcf_ploidy: int = 2  # --vcf-ploidy, 2..8 (main.cpp:181-185)
+    fast_mode: bool = False  # --fast (skip all-zero-GT samples when indexing)
+    use_unique_kmers: bool = False  # --use-unique-kmers
 
     # ---- algorithm (genotype) ----
     sample_type: str = "het"  # -g: hom | het
@@ -37,10 +41,10 @@ class VarigraphConfig:
 
     # ---- runtime ----
     debug: bool = False  # -D
-    threads: int = 10  # -t (FASTQ files decompressed concurrently)
-    seed: int = 0  # deterministic seed for the Dirichlet draws
+    threads: int = 10  # -t (FASTQ files read / context walkers)
+    seed: int = 0  # deterministic seed for CBF hashing + Dirichlet draws
     engine: str = "torch"  # "torch" (device) | "np" (host oracle)
-    device: str = "cuda"  # torch device of the table and the scoring tensors
+    device: str = "cuda"  # torch device of the filter, table and scoring
 
     # ---- read batching (no reference counterpart) ----
     read_batch_size: int = 16384  # reads per device batch
@@ -50,6 +54,19 @@ class VarigraphConfig:
     save_counts_file: str = ""
 
     # -------------------------------------------------------------- validation
+    def validate_construct(self) -> None:
+        if not self.ref_file:
+            raise ValueError("reference FASTA (-r) cannot be empty")
+        if not self.vcf_file:
+            raise ValueError("VCF file (-v) cannot be empty")
+        if not self.output_graph_file:
+            raise ValueError("--save-graph cannot be empty")
+        if not (2 <= self.vcf_ploidy <= 8):
+            raise ValueError("--vcf-ploidy must be between 2 and 8")
+        if not (5 <= self.kmer_len <= 28):
+            raise ValueError("-k must be between 5 and 28")
+        self.torch_device()
+
     def validate_genotype(self) -> None:
         if not self.input_graph_file:
             raise ValueError("--load-graph cannot be empty")
@@ -84,6 +101,18 @@ class VarigraphConfig:
         return torch.device(self.device)
 
     # ---------------------------------------------------------------- logging
+    def log_construct(self) -> None:
+        log(f"Number of threads: {self.threads}")
+        log(f"k-mer size: {self.kmer_len}")
+        log(f"Reference file path: {self.ref_file}")
+        log(f"Variants file path: {self.vcf_file}")
+        log(f"Ploidy of genotypes in the VCF file: {self.vcf_ploidy}")
+        log(f"Fast mode: {'Enabled' if self.fast_mode else 'Disabled'}")
+        log(f"Use only unique k-mers for indexing: "
+            f"{'Enabled' if self.use_unique_kmers else 'Disabled'}")
+        log(f"Device: {self.device}")
+        log(f"Deterministic seed: {self.seed}")
+
     def log_genotype(self) -> None:
         log(f"Number of threads: {self.threads}")
         log(f"Genome graph file: {self.input_graph_file}")

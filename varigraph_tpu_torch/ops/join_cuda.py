@@ -10,74 +10,36 @@ CUDA tensors it launches the kernel or raises: a failed build or launch is an
 error, never a quiet fall back to plain code.
 
 The kernel is compiled from the repository's source with ``nvcc`` at first
-use, into a shared library with a plain C interface loaded by ctypes, under
-``BUILD_DIR`` (git-ignored).  ``LAUNCHES["count_join"]`` counts kernel
+use (``ops/cuda_build.py``).  ``LAUNCHES["count_join"]`` counts kernel
 launches, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import os
-import subprocess
-import tempfile
-import threading
 
 import torch
 
-from .. import BUILD_DIR
+from .cuda_build import LAUNCHES, KernelLibrary
 from .table import count_join
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "join.cu")
-LIBRARY = os.path.join(BUILD_DIR, "libvgjoin.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches by kernel name; incremented only where a kernel launches
-LAUNCHES: collections.Counter = collections.Counter()
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.vg_count_join.restype = ctypes.c_int
+    lib.vg_count_join.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+    ]
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
+_LIB = KernelLibrary("join.cu", "libvgjoin.so", _declare)
+LIBRARY = _LIB.library
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if the library is missing or older than its source) and load
-    the join library.  Raises RuntimeError when nvcc fails."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if (not os.path.exists(LIBRARY)
-                or os.path.getmtime(LIBRARY) < os.path.getmtime(SOURCE)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                   capture_output=True, text=True)
-                if r.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {SOURCE}:\n{r.stdout}{r.stderr}")
-                os.replace(tmp, LIBRARY)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(LIBRARY)
-        lib.vg_count_join.restype = ctypes.c_int
-        lib.vg_count_join.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
-        ]
-        _lib = lib
-        return lib
+    """Compile (if needed) and load the join library; raises RuntimeError
+    when nvcc fails."""
+    return _LIB.load()
 
 
 def _check(cov, keys, queries, mask) -> None:

@@ -25,9 +25,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .sketch_ref import encode_bases_np
+
 # encoded value layout: hash64(kmer) << 8 | span (reference src/kmer.cpp:43)
 KMER_SPAN_BITS = 8
 PACKED_LEN_BYTES = 2  # u16-LE row length appended to each packed row
+
+
+def encode_bases(seq: str | bytes) -> np.ndarray:
+    """Host helper: DNA string -> uint8 codes (0..3, 4 = ambiguous)."""
+    return encode_bases_np(seq)
+
+
+def pack_seqs(seqs: list[bytes | str], max_len: int | None = None) -> np.ndarray:
+    """Pack variable-length sequences into a [B, L] uint8 code matrix.
+
+    Padding uses code 4 (ambiguous), which never emits and resets the run
+    counter, so rows are fully independent.
+    """
+    if max_len is None:
+        max_len = max((len(s) for s in seqs), default=1)
+    out = np.full((len(seqs), max_len), 4, dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        codes = encode_bases_np(s)[:max_len]
+        out[i, : len(codes)] = codes
+    return out
 
 
 def hash64(key: torch.Tensor, mask: int) -> torch.Tensor:
@@ -121,3 +143,13 @@ def pack_codes_np(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     out[:, L // 4] = (lengths & 0xFF).astype(np.uint8)
     out[:, L // 4 + 1] = ((lengths >> 8) & 0xFF).astype(np.uint8)
     return out
+
+
+def sketch_seq(seq: str | bytes, k: int) -> np.ndarray:
+    """Convenience host wrapper: string -> emitted encoded k-mers (1-D
+    uint64, in sequence order)."""
+    codes = encode_bases_np(seq)
+    if codes.size == 0:
+        return np.empty(0, dtype=np.uint64)
+    values, emit = sketch_codes(torch.from_numpy(codes[None, :]), k)
+    return values[emit].cpu().numpy().view(np.uint64)

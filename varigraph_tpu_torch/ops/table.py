@@ -146,6 +146,27 @@ class KmerTable:
             keys_host=keys_u64,
         )
 
+    @staticmethod
+    def build_packed(keys: np.ndarray, freq: np.ndarray,
+                     hapbit_bytes: np.ndarray, refflag: np.ndarray, nhap: int,
+                     device: torch.device | str) -> "KmerTable":
+        """Build from host arrays with bit-packed haplotype rows
+        ([M, ceil(nhap/8)] uint8, hap i -> byte i>>3 bit i&7), as
+        index/build.index_graph emits them.  Never materializes the
+        [M, nhap] matrix.  Sorts on the host when the keys are not sorted
+        (index_graph emits them sorted, so that is skipped); keys and cov go
+        to ``device``, the rest stays host numpy."""
+        keys = np.asarray(keys, np.uint64)
+        if len(keys) > 1 and not np.all(keys[1:] > keys[:-1]):
+            order = np.argsort(keys, kind="stable")
+            keys = keys[order]
+            freq, hapbit_bytes, refflag = (
+                freq[order], hapbit_bytes[order], refflag[order]
+            )
+        return KmerTable.from_numpy(keys, None, freq,
+                                    bytes_to_words(hapbit_bytes, nhap),
+                                    refflag, nhap, device)
+
     @property
     def size(self) -> int:
         return int(self.keys.shape[0])
