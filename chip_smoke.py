@@ -36,11 +36,29 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      of 50,000 sites x 50 samples (tools/gen_big.py's generators), a
      2^30-cell (1 GiB) filter on the card; phase times, table checks, the
      file read back, and the kernel's filter equal to the plain version's
-     after the first 32 genome batches.
+     after the first 32 genome batches;
+ 10. the reference graph.bin: the committed 2 Mb graph written as graph.bin,
+     ``genotype --load-graph graph.bin --device cuda`` through the CLI (the
+     join must launch, S1 must meet the 99% GT gate), the loaded table equal
+     to the .vgt's, whether the rebuilt local bits equal the construct-time
+     ones, and a timed graph.bin write and load of phase 9's 100 Mb graph;
+ 11. two processes: S1's reads split into two FASTQ files, two genotype CLI
+     processes on the card joined by ``--coordinator localhost:PORT
+     --num-processes 2`` (each under a timeout, both killed on failure),
+     whose VCF must be byte-identical to one process's on the same files;
+ 12. the mesh: over the card's devices, or 2 logical shards of cuda:0 when
+     there is one card.  Phase 9's 100 Mb genome filter built over 2 shards
+     equals phase 9's one-device filter byte for byte; a 3-shard filter
+     (m not a power of two) equals its plain version; construct of the 2 Mb
+     fixture with the shard threshold forced equals the committed graph.vgt
+     in every member; genotype over the mesh (replicated counting,
+     window-sharded forward/backward) gives phase 4's coverage and VCF; and
+     the per-shard kernels are timed at 2^29 cells per shard.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
-summed over the main paths); its last line is
+summed over the main paths; the filter kernels' entries also carry the
+per-shard times, ``shard_ms`` and ``shard_plain_ms``); its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -65,6 +83,7 @@ import time
 import numpy as np
 import torch
 
+import varigraph_tpu_torch.genotype.pipeline as pipeline_mod
 import varigraph_tpu_torch.index.build as build_mod
 from varigraph_tpu_torch.cli import main as cli_main
 from varigraph_tpu_torch.config import VarigraphConfig
@@ -73,15 +92,18 @@ from varigraph_tpu_torch.genotype.coverage import estimate_hap_coverage
 from varigraph_tpu_torch.genotype.engine_np import genotype_np, graph2node
 from varigraph_tpu_torch.genotype.engine_torch import genotype_torch
 from varigraph_tpu_torch.genotype.pipeline import load_counts
+from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
 from varigraph_tpu_torch.ops import cbf_cuda, join_cuda
-from varigraph_tpu_torch.ops.cbf import (CountingBloomFilter, cbf_add_plain,
-                                         cbf_count_plain, make_seeds)
+from varigraph_tpu_torch.ops.cbf import (CountingBloomFilter, ShardedCBF,
+                                         cbf_add_plain, cbf_count_plain,
+                                         make_seeds)
 from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.kmer import sketch_codes
 from varigraph_tpu_torch.ops.table import count_join
+from varigraph_tpu_torch.parallel.mesh import Mesh
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -105,6 +127,8 @@ BIG_FILTER_CELLS = 1 << 30                     # 1 GiB of counters at 100 Mb
 GENOME_BATCH_KEYS = 16384 * (160 - (K - 1))   # one genome batch, 2,195,456
 CBF_TIMING_KH = 7                              # kh of the 2^30 filter
 FILTER_CHECK_BATCHES = 32
+PROCESS_TIMEOUT_S = 300                        # each CLI process of phase 11
+SHARD_CELLS = 1 << 29                          # per-shard timing (phase 12)
 
 
 def fail(msg: str) -> None:
@@ -386,11 +410,13 @@ def print_timings(t: dict[str, float], wall: float) -> None:
     print(f"    CLI wall: {wall:.2f} s")
 
 
-def construct(ref: str, vcf: str, out: str) -> tuple[str, float]:
+def construct(ref: str, vcf: str, out: str,
+              device_name: str = "cuda") -> tuple[str, float]:
     """Runs the construct CLI on the card; returns (log, wall seconds)."""
     t0 = time.perf_counter()
     log_text = run_cli(["construct", "-r", ref, "-v", vcf, "-k", str(K),
-                        "--seed", "0", "--device", "cuda", "--save-graph", out])
+                        "--seed", "0", "--device", device_name,
+                        "--save-graph", out])
     return log_text, time.perf_counter() - t0
 
 
@@ -615,17 +641,32 @@ def check_big_filter(device, ref: str, queries: torch.Tensor) -> int:
     return err
 
 
-def phase_big(device, work: str) -> tuple[dict, int]:
+def phase_big(device, work: str):
     """Construct at BIG_MB Mb; returns (launches, the filter kernels' max
-    abs difference from plain at the construct's 2^30 cells)."""
+    abs difference from plain at the construct's 2^30 cells, the genome
+    FASTA, the loaded graph, its .vgt path, the construct's genome filter)."""
     t0 = time.perf_counter()
     ref, vcf = make_big_inputs(work)
     print(f"  generated {BIG_MB} Mb x {BIG_CHROMS} chromosomes, {BIG_SITES} sites x "
           f"{BIG_SAMPLES} samples in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(work, "big.vgt")
-    LAUNCHES.clear()
-    log_text, wall = construct(ref, vcf, out)
-    launches = dict(LAUNCHES)
+    made = []
+
+    class Recording(CountingBloomFilter):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    saved = build_mod.CountingBloomFilter
+    build_mod.CountingBloomFilter = Recording
+    try:
+        LAUNCHES.clear()
+        log_text, wall = construct(ref, vcf, out)
+        launches = dict(LAUNCHES)
+    finally:
+        build_mod.CountingBloomFilter = saved
+    if len(made) != 1:
+        fail(f"the {BIG_MB} Mb construct made {len(made)} filters, not one")
     print(f"  launches {launches}")
     if not launches.get("cbf_add") or not launches.get("cbf_count"):
         fail(f"the {BIG_MB} Mb construct did not launch the filter kernels")
@@ -647,7 +688,332 @@ def phase_big(device, work: str) -> tuple[dict, int]:
     err = check_big_filter(device, ref, gi.table.keys)
     if err:
         fail(f"the filter kernels disagree with plain on the {BIG_MB} Mb genome")
-    return launches, err
+    return launches, err, ref, gi, out, made[0]
+
+
+# ---------------------------------------------------------------- phase 10
+
+def _same_table(a, b) -> bool:
+    """Every table array of two loaded graphs equal."""
+    return all(np.array_equal(getattr(a.table, v)(), getattr(b.table, v)())
+               for v in ("keys_np", "freq_np", "hap_words_np", "refflag_np",
+                         "cov_u8"))
+
+
+def _same_local_bits(a, b) -> tuple[int, int]:
+    """(variant nodes whose rebuilt local bits equal the .vgt's, variant
+    nodes)."""
+    same = n = 0
+    for chrom in a.graph.nodes:
+        for x, y in zip(a.graph.nodes[chrom], b.graph.nodes[chrom]):
+            if x.is_variant:
+                n += 1
+                same += np.array_equal(np.asarray(x.local_bits, np.uint8),
+                                       np.asarray(y.local_bits, np.uint8))
+    return same, n
+
+
+def phase_interop(device, work: str, cfg_path: str, big_gi, big_vgt: str):
+    """graph.bin on the card; returns the genotype run's launches."""
+    vgt = os.path.join(FIXTURE, "graph.vgt")
+    bin_path = os.path.join(work, "graph.bin")
+    save_reference_graph_bin(load_graph(vgt, device=device), bin_path)
+    print(f"  wrote the 2 Mb graph as graph.bin, "
+          f"{os.path.getsize(bin_path) / 1e6:.1f} MB")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    vcf, _ = run_main_path(device.type, work, cfg_path,
+                           os.path.join(work, "counts_bin.npz"),
+                           graph=bin_path, out_name="out_bin")
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    agree, sites = gt_agreement(vcf)
+    print(f"  genotype --load-graph graph.bin: launches {launches}; S1 GT "
+          f"agrees with the truth at {agree}/{sites} sites "
+          f"({agree / sites:.4f}); CLI wall {wall:.2f} s")
+    if not launches.get("count_join") or agree < MIN_GT_AGREEMENT * sites:
+        fail("genotype from graph.bin fell below 99% or skipped the join")
+    a, b = load_graph(bin_path, device=device), load_graph(vgt, device=device)
+    same_tbl = _same_table(a, b) and a.table.keys.device == device
+    same, n = _same_local_bits(a, b)
+    print(f"  graph.bin load: table arrays equal to the .vgt's: {same_tbl}; "
+          f"rebuilt local bits equal to the construct-time ones at "
+          f"{same}/{n} variant nodes")
+    if not same_tbl:
+        fail("the table loaded from graph.bin differs from the .vgt's")
+
+    big_bin = os.path.join(work, "big.bin")
+    t0 = time.perf_counter()
+    save_reference_graph_bin(big_gi, big_bin)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_graph(big_bin, device=device, threads=os.cpu_count() or 1)
+    t_load = time.perf_counter() - t0
+    same, n = _same_local_bits(back, load_graph(big_vgt))
+    ok = _same_table(back, big_gi)
+    print(f"  {BIG_MB} Mb graph.bin ({os.path.getsize(big_bin) / 1e6:.1f} MB): "
+          f"write {t_save:.2f} s, load {t_load:.2f} s (local bits rebuilt on "
+          f"the card); table equal: {ok}; local bits equal at {same}/{n} "
+          f"variant nodes")
+    if not ok:
+        fail(f"the {BIG_MB} Mb table loaded from graph.bin differs")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 11
+
+def _split_fastq(src: str, outs: list[str]) -> None:
+    fhs = [open(p, "w") for p in outs]
+    with open(src) as fh:
+        for n, rec in enumerate(zip(*[fh] * 4)):
+            fhs[n % len(fhs)].writelines(rec)
+    for fh in fhs:
+        fh.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _vcf_bytes(vcf: str) -> bytes:
+    with gzip.open(vcf, "rb") as fh:
+        return fh.read()
+
+
+def phase_multiprocess(device, work: str, fq: str):
+    """Two CLI processes on the card against one; returns the single
+    process run's launches."""
+    fqs = [os.path.join(work, f"S1_{i}.fq") for i in range(2)]
+    _split_fastq(fq, fqs)
+    cfg2 = os.path.join(work, "samples2.cfg")
+    with open(cfg2, "w") as fh:
+        fh.write("S1 " + " ".join(fqs) + "\n")
+    graph = os.path.join(FIXTURE, "graph.vgt")
+    LAUNCHES.clear()
+    vcf1, _ = run_main_path(device.type, work, cfg2, os.path.join(work, "c1.npz"),
+                            out_name="out_1proc")
+    launches = dict(LAUNCHES)
+    if not launches.get("count_join"):
+        fail("the one-process run on two files did not launch the join")
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    port = _free_port()
+    out2 = os.path.join(work, "out_2proc")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "varigraph_tpu_torch", "genotype",
+         "--load-graph", graph, "-s", cfg2, "--out-dir", out2,
+         "--device", device.type, "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(i)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in range(2)]
+    try:
+        logs = []
+        for i, p in enumerate(procs):
+            _, err = p.communicate(timeout=PROCESS_TIMEOUT_S)
+            logs.append(err)
+            if p.returncode != 0:
+                fail(f"process {i} of the 2-process run exited "
+                     f"{p.returncode}:\n{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, text in enumerate(logs):
+        m = re.search(r"kernel launches: (\{.*\})", text)
+        tbl = re.search(r"\(table on (\S+)\)", text)
+        print(f"  process {i}: {m.group(0) if m else 'no launch line'}; "
+              f"table on {tbl.group(1) if tbl else '?'}")
+        if (not m or "count_join" not in m.group(1)
+                or "merged counts from 2 hosts" not in text
+                or "merged scoring results from 2 hosts" not in text):
+            fail(f"process {i} did not count through the join kernel and "
+                 "merge with its peer")
+    same = _vcf_bytes(os.path.join(out2, "S1.varigraph.vcf.gz")) == _vcf_bytes(vcf1)
+    print(f"  2-process VCF byte-identical to the 1-process VCF: {same}; "
+          f"2-process wall {wall:.2f} s (two interpreters, CUDA start-up "
+          f"in each)")
+    if not same:
+        fail("the 2-process VCF differs from the 1-process VCF")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 12
+
+def _mesh(device) -> Mesh:
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh = Mesh([torch.device("cuda", i) for i in range(n)])
+        print(f"  mesh over the card's {n} devices: {mesh}")
+    else:
+        mesh = Mesh([device, device])
+        print(f"  one device (device_count {n}): mesh of 2 logical shards "
+              f"of {device}")
+    return mesh
+
+
+def check_sharded_big_filter(mesh, ref: str, single) -> tuple[int, float]:
+    """Phase 9's genome filter built again over the mesh; returns (max abs
+    difference from phase 9's one-device filter, seconds)."""
+    genome, _, size = read_fasta(ref)
+    saved = build_mod._CBF_SHARD_MIN
+    build_mod._CBF_SHARD_MIN = 1
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bf = build_mod.make_genome_cbf(genome, size, K, 0, single.device, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        build_mod._CBF_SHARD_MIN = saved
+    if not isinstance(bf, ShardedCBF) or len(bf.shards) != mesh.size:
+        fail("make_genome_cbf did not take the sharded filter")
+    if (bf.size, bf.num_hashes) != (single.size, single.num_hashes):
+        fail("the sharded filter is sized unlike the one-device filter")
+    err = max(_max_abs_diff_u8(s.to(single.device),
+                               single.filter[lo:lo + bf.m_local])
+              for s, lo in zip(bf.shards, bf.los))
+    print(f"  {BIG_MB} Mb genome filter over {mesh.size} shards of "
+          f"{bf.m_local} cells: {secs:.2f} s; vs phase 9's one-device filter "
+          f"max_abs_err {err}")
+    return err, secs
+
+
+def check_three_shards(device, fixture_genome) -> int:
+    """A 3-shard filter on the card (m = 2^25 + 1, modulo addressing, shards
+    of 11,184,811 cells) against the plain version over the same shards."""
+    mesh = Mesh([device] * 3)
+    n = (1 << 25) // 10     # m rounds up to 2^25, padded to a multiple of 3
+    bf = ShardedCBF(n, 0.01, 0, mesh=mesh)
+    plain = [torch.zeros(bf.m_local, dtype=torch.uint8, device=device)
+             for _ in range(3)]
+    seq = next(iter(fixture_genome.values()))
+    adds = 0
+    for batch in build_mod.segment_genome_batches(seq, K):
+        keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
+        bf.add(keys, mask)
+        for p, lo in zip(plain, bf.los):
+            cbf_add_plain(p, keys, mask, bf.seeds_t[0], bf.size, lo)
+        adds += 1
+    got = torch.from_numpy(bf.count(keys))
+    want = torch.stack([cbf_count_plain(p, keys, bf.seeds_t[0], bf.size, lo)
+                        for p, lo in zip(plain, bf.los)]).amin(dim=0).cpu()
+    err = max(max(_max_abs_diff_u8(s, p) for s, p in zip(bf.shards, plain)),
+              _max_abs_diff_u8(got, want))
+    print(f"  3 shards: m={bf.size} (not a power of two), {bf.m_local} cells "
+          f"a shard, kh={bf.num_hashes}, {adds} genome batches; kernel vs plain "
+          f"max_abs_err {err}; {int(sum(s.count_nonzero() for s in bf.shards))} "
+          f"nonzero")
+    if err:
+        fail("the 3-shard filter kernels disagree with plain")
+    return err
+
+
+def time_shard(device) -> tuple[dict[str, tuple[float, float]], int]:
+    """Kernel and plain ms of add and count on the second of two shards of
+    SHARD_CELLS cells (m = 2 * SHARD_CELLS) at one genome batch, kh = 7:
+    plain, kernel, kernel, plain, after holding the kernels against plain."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    codes = torch.randint(0, 4, (BATCH, READ_LEN_PAD), generator=gen,
+                          device=device, dtype=torch.uint8)
+    keys, mask = _genome_batch(codes)
+    seeds = CountingBloomFilter._seed_tensor(make_seeds(CBF_TIMING_KH, 0), device)
+    m, lo = 2 * SHARD_CELLS, SHARD_CELLS
+    filt = torch.zeros(SHARD_CELLS, dtype=torch.uint8, device=device)
+    ref = torch.zeros_like(filt)
+    cbf_cuda.cbf_add_(filt, keys, mask, seeds, m, lo)
+    cbf_add_plain(ref, keys, mask, seeds, m, lo)
+    err = max(_max_abs_diff_u8(filt, ref),
+              _max_abs_diff_u8(cbf_cuda.cbf_count(filt, keys, seeds, m, lo),
+                               cbf_count_plain(ref, keys, seeds, m, lo)))
+    print(f"  shard of 2^{SHARD_CELLS.bit_length() - 1} cells from {lo} of "
+          f"m=2^{m.bit_length() - 1}: kernel vs plain max_abs_err {err}")
+    if err:
+        fail("the per-shard kernels disagree with plain")
+    del ref
+    out = {}
+    fns = {
+        "add": (lambda: cbf_cuda.cbf_add_(filt, keys, mask, seeds, m, lo),
+                lambda: cbf_add_plain(filt, keys, mask, seeds, m, lo)),
+        "count": (lambda: cbf_cuda.cbf_count(filt, keys, seeds, m, lo),
+                  lambda: cbf_count_plain(filt, keys, seeds, m, lo)),
+    }
+    for op, (kernel, plain) in fns.items():
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
+                          time_ms(plain))
+        out[op] = (min(k1, k2), min(p1, p2))
+        print(f"  shard {op}, {keys.numel()} keys x kh {CBF_TIMING_KH}: kernel "
+              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    return out, err
+
+
+def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
+               ref: str, big_filter, fixture_genome):
+    """The mesh phase; returns (launches of its main paths, the filter
+    kernels' max abs error, the per-shard times)."""
+    mesh = _mesh(device)
+    launches = collections.Counter()
+    err, _ = check_sharded_big_filter(mesh, ref, big_filter)
+    if err:
+        fail(f"the sharded {BIG_MB} Mb filter differs from the one-device one")
+    err = max(err, check_three_shards(device, fixture_genome))
+
+    # construct of the fixture over the mesh, shard threshold forced
+    made = []
+
+    class Recording(ShardedCBF):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    port_vgt = os.path.join(work, "sharded.vgt")
+    saved = (build_mod._CBF_SHARD_MIN, build_mod.ShardedCBF, build_mod.make_mesh,
+             pipeline_mod.make_mesh)
+    build_mod._CBF_SHARD_MIN, build_mod.ShardedCBF = 1, Recording
+    build_mod.make_mesh = pipeline_mod.make_mesh = lambda n, dev: mesh
+    try:
+        LAUNCHES.clear()
+        construct(os.path.join(FIXTURE, "ref.fa.gz"),
+                  os.path.join(FIXTURE, "vars.vcf.gz"), port_vgt, device.type)
+        launches.update(LAUNCHES)
+        print(f"  sharded construct launches {dict(LAUNCHES)}")
+        if len(made) != 1 or len(made[0].shards) != mesh.size:
+            fail("construct did not build its filter over the mesh")
+        if LAUNCHES["cbf_add"] < mesh.size or LAUNCHES["cbf_count"] < mesh.size:
+            fail("the sharded construct did not launch the filter kernels "
+                 "on every shard")
+        if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
+            fail("the sharded construct differs from the committed graph")
+
+        # genotype over the mesh: replicated counting, window-sharded fb
+        LAUNCHES.clear()
+        mesh_counts = os.path.join(work, "counts_mesh.npz")
+        vcf, log_text = run_main_path(device.type, work, cfg_path,
+                                      mesh_counts, out_name="out_mesh")
+        launches.update(LAUNCHES)
+    finally:
+        (build_mod._CBF_SHARD_MIN, build_mod.ShardedCBF, build_mod.make_mesh,
+         pipeline_mod.make_mesh) = saved
+    spread = (f"counting data-parallel over {mesh.size} devices" in log_text
+              and f"forward/backward over {mesh.size} devices" in log_text)
+    with np.load(counts) as a, np.load(mesh_counts) as b:
+        same_cov = (np.array_equal(a["cov"], b["cov"])
+                    and int(a["read_base"]) == int(b["read_base"]))
+    same_vcf = _vcf_bytes(vcf) == _vcf_bytes(vcf4)
+    print(f"  genotype over the mesh: join launches {LAUNCHES['count_join']}; "
+          f"counting and fb spread over it: {spread}; coverage equal to phase "
+          f"4's: {same_cov}; VCF byte-identical to phase 4's: {same_vcf}")
+    if not (LAUNCHES["count_join"] and spread and same_cov and same_vcf):
+        fail("genotype over the mesh differs from one device")
+    shard_times, e = time_shard(device)
+    return launches, max(err, e), shard_times
 
 
 def main() -> int:
@@ -720,6 +1086,7 @@ def main() -> int:
         LAUNCHES.clear()
         t0 = time.perf_counter()
         vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
+        vcf4 = vcf
         wall = time.perf_counter() - t0
         main_launches = collections.Counter(LAUNCHES)
         launches = LAUNCHES["count_join"]
@@ -806,9 +1173,25 @@ def main() -> int:
         err = max(err, e)
 
         print(f"== 9. main path: construct at {BIG_MB} Mb on the card")
-        big_launches, e = phase_big(device, work)
+        big_launches, e, big_ref, big_gi, big_vgt, big_filter = phase_big(
+            device, work)
         main_launches.update(big_launches)
         cbf_err = max(cbf_err, e)
+
+        print("== 10. main path: genotype from the reference graph.bin")
+        main_launches.update(phase_interop(device, work, cfg_path, big_gi,
+                                           big_vgt))
+        del big_gi
+
+        print("== 11. main path: two genotype processes on the card")
+        main_launches.update(phase_multiprocess(device, work, fq))
+
+        print("== 12. main path: the mesh")
+        mesh_launches, e, shard_times = phase_mesh(
+            device, work, cfg_path, counts, vcf4, big_ref, big_filter, genome)
+        main_launches.update(mesh_launches)
+        cbf_err = max(cbf_err, e)
+        del big_filter
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
@@ -822,11 +1205,12 @@ def main() -> int:
     }]
     for name, op, line in (("cbf_add", "add", 146), ("cbf_count", "count", 162)):
         kms, pms = cbf_times[f"{op} m=2^30"]
+        sms, spms = shard_times[op]
         kernels.append({
             "name": name, "route": "cuda", "source": source.format("cbf"),
             "replaces": f"varigraph_tpu/ops/cbf.py:{line}",
             "launches": main_launches[name], "max_abs_err": cbf_err,
-            "ms": kms, "plain_ms": pms,
+            "ms": kms, "plain_ms": pms, "shard_ms": sms, "shard_plain_ms": spms,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

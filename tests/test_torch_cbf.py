@@ -250,12 +250,13 @@ def test_wrappers_on_cpu_use_plain_and_count_no_launch():
 
 @pytest.mark.parametrize("bad", ["filter_dtype", "keys_dtype", "mask_dtype",
                                  "mask_shape", "not_pow2", "strided", "2d",
-                                 "no_seeds"])
+                                 "no_seeds", "shard_past_m", "negative_lo"])
 def test_wrappers_reject_bad_arguments(bad):
     filt = torch.zeros(1 << 10, dtype=torch.uint8)
     keys = _t(np.arange(1, 65, dtype=np.uint64))
     mask = torch.ones(64, dtype=torch.bool)
     seeds = _t(make_seeds(3, 0))
+    shard = {}
     if bad == "filter_dtype":
         filt = filt.to(torch.int32)
     elif bad == "keys_dtype":
@@ -265,18 +266,43 @@ def test_wrappers_reject_bad_arguments(bad):
     elif bad == "mask_shape":
         mask = mask[:-1]
     elif bad == "not_pow2":
+        # a 1000-cell filter is valid (modulo addressing), but not as the
+        # cells from 1 of a 1000-cell filter
         filt = torch.zeros(1000, dtype=torch.uint8)
+        shard = {"m": 1000, "lo": 1}
     elif bad == "strided":
         keys, mask = keys[::2], mask[::2]
     elif bad == "2d":
         keys, mask = keys.reshape(8, 8), mask.reshape(8, 8)
     elif bad == "no_seeds":
         seeds = seeds[:0]
+    elif bad == "shard_past_m":
+        shard = {"m": 1 << 10, "lo": 1 << 9}
+    elif bad == "negative_lo":
+        shard = {"m": 1 << 11, "lo": -1}
     with pytest.raises((TypeError, ValueError)):
-        cbf_cuda.cbf_add_(filt, keys, mask, seeds)
+        cbf_cuda.cbf_add_(filt, keys, mask, seeds, **shard)
     if bad not in ("mask_dtype", "mask_shape"):
         with pytest.raises((TypeError, ValueError)):
-            cbf_cuda.cbf_count(filt, keys, seeds)
+            cbf_cuda.cbf_count(filt, keys, seeds, **shard)
+
+
+@pytest.mark.parametrize("m", [1000, 3 * (1 << 10) + 1])
+def test_plain_modulo_addressing_is_unsigned(m):
+    """For m not a power of two, positions are the unsigned 64-bit Murmur3
+    value % m (JAX ``_positions``); half the keys have bit 63 set, and so do
+    about half the hashes."""
+    from varigraph_tpu_torch.ops.cbf import cbf_positions
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 1 << 63, size=3000, dtype=np.uint64)
+    keys[::2] |= np.uint64(1 << 63)
+    seeds = make_seeds(3, 1)
+    got = cbf_positions(_t(keys), _t(seeds), m).numpy()
+    want = np.stack([murmur3_x64_128_u64key(_t(keys), int(s)).numpy()
+                     .view(np.uint64) % np.uint64(m) for s in seeds])
+    np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert (got >= 0).all() and (got < m).all()
 
 
 # ------------------------------------------------------- exact genome counts
@@ -352,3 +378,35 @@ def test_cuda_exact_counter_matches_plain_join():
     plain = ExactGenomeCounter(genome, k, device="cuda", join=count_join).count(keys)
     np.testing.assert_array_equal(kernel, plain)
     np.testing.assert_array_equal(kernel, ExactGenomeCounter(genome, k).count(keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_cuda_shard_kernel_matches_plain(n_shards):
+    """ShardedCBF over n logical shards of the card against the same filter
+    over n shards of the CPU (the plain version): at 3 shards m = 2^15 + 1,
+    positions are taken modulo m and a shard holds 10,923 cells, not a
+    multiple of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the filter kernel has no CPU mode")
+    from varigraph_tpu_torch.ops.cbf import ShardedCBF
+    from varigraph_tpu_torch.parallel.mesh import Mesh
+
+    for name in CASES:
+        adds, queries = _case(name)
+        gpu = ShardedCBF(N_FILTER, 0.01, seed=42, mesh=Mesh(["cuda"] * n_shards))
+        cpu = ShardedCBF(N_FILTER, 0.01, seed=42, mesh=Mesh(["cpu"] * n_shards))
+        assert gpu.size == (1 << 15) + (n_shards == 3)
+        before = dict(cbf_cuda.LAUNCHES)
+        launched = 0
+        for keys, mask in adds:
+            gpu.add(keys, mask)
+            cpu.add(keys, mask)
+            launched += n_shards * (len(keys) > 0)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(gpu.filter_np(), cpu.filter_np(), err_msg=name)
+        np.testing.assert_array_equal(gpu.count(queries), cpu.count(queries),
+                                      err_msg=name)
+        assert gpu.occupancy() == cpu.occupancy()
+        assert cbf_cuda.LAUNCHES["cbf_add"] == before.get("cbf_add", 0) + launched
+        assert cbf_cuda.LAUNCHES["cbf_count"] == before.get("cbf_count", 0) + n_shards

@@ -2,7 +2,7 @@
 
 Mirrors the JAX package's VarigraphConfig (itself the reference's
 VarigraphConfig, include/varigraph.hpp:26-103, defaults at :49-68), plus
-``device`` and ``engine``.
+``device``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,13 @@ class VarigraphConfig:
     # ---- read batching (no reference counterpart) ----
     read_batch_size: int = 16384  # reads per device batch
     max_read_len: int = 160  # padded read length per batch
+    mesh_devices: int = 0  # 0 = all local devices
+    # several processes (torch.distributed, gloo): each process streams its
+    # round-robin share of a sample's FASTQ files, counts merge with one
+    # collective, rank 0 writes the VCF
+    coordinator: str = ""  # --coordinator host:port ("" = torchrun's env)
+    num_processes: int = 0  # --num-processes (0 = single process / env)
+    process_id: int = -1  # --process-id (-1 = env)
     # counted-reads checkpoint (single-sample runs): skip or persist counting
     load_counts_file: str = ""
     save_counts_file: str = ""

@@ -15,6 +15,12 @@ src/genotype.cpp -- see its docstring for the file:line map):
     weights; ``kind`` resets the chain or skips pad nodes.
   * window prep and posterior aggregation (string-keyed genotype grouping,
     NAK/CAK/UK) stay on the host, copied from the JAX engine.
+  * several devices and processes (engine_jax.py:537-551,604-625,781-784):
+    each process scores its round-robin share of the windows and the
+    results merge at the end (parallel/dist.py); within a process, a mesh
+    of several devices splits each group's window axis for the
+    forward/backward.  Windows are independent chains, so both give the
+    one-device results.
 
 Float32 on the device; the oracle engine is the precision reference.
 """
@@ -31,6 +37,8 @@ import torch
 
 from ..index.structs import GraphIndex
 from ..ops.table import pack_hapbits
+from ..parallel import dist
+from ..parallel.mesh import Mesh
 from ..utils.log import log
 from .combos import increment_vector
 from .engine_np import (
@@ -441,13 +449,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _forward_backward_mesh(mesh: Mesh, logE, *args, fre_mode: bool, P: int):
+    """``_forward_backward`` with the window axis split over the mesh
+    devices in contiguous slices of ceil(W / mesh size) windows; alpha and
+    beta come back to the host."""
+    W = logE.shape[0]
+    step = -(-W // mesh.size)
+    parts = [
+        _forward_backward(logE[lo:lo + step].to(d),
+                          *(a[lo:lo + step].to(d) for a in args), fre_mode, P)
+        for d, lo in zip(mesh.devices, range(0, W, step))
+    ]
+    return (np.concatenate([a.cpu().numpy() for a, _ in parts]),
+            np.concatenate([b.cpu().numpy() for _, b in parts]))
+
+
 def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                    host_arrays=None, device: torch.device | str | None = None,
+                   mesh: Mesh | None = None,
                    ) -> dict[tuple[str, int], PosteriorRecord]:
     """Score every window; returns {(chrom, start): PosteriorRecord}.
 
     device: where emissions and forward/backward run (default: the table's
-    device).  Windows are scored in groups of up to _WINDOW_GROUP; each
+    device).  mesh: with more than one device, each group's forward/backward
+    is split over its devices by window.  In a multi-process run this
+    process scores every n-th window and the results of all processes are
+    merged.  Windows are scored in groups of up to _WINDOW_GROUP; each
     group is padded only to its own largest window, state count and
     used-hap count (U a multiple of 32, so hap bits pack into u32 words)."""
     device = torch.device(device) if device is not None else gi.table.device
@@ -488,8 +515,26 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     if not windows_all:
         return results
 
+    # several processes: each preps and scores its round-robin share of the
+    # windows.  A window's result does not depend on which others share its
+    # group (its RNG is seeded by (seed, chrom, w_id)), so the merged
+    # results equal a single process's.
+    n_proc = dist.process_count()
+    windows_mine = windows_all
+    if n_proc > 1:
+        pid = dist.process_index()
+        windows_mine = windows_all[pid::n_proc]
+        log(f"window-sharded scoring: process {pid}/{n_proc} scores "
+            f"{len(windows_mine)}/{len(windows_all)} windows",
+            func="genotype_torch")
+    if mesh is not None and mesh.size > 1:
+        log(f"window-sharded forward/backward over {mesh.size} devices",
+            func="genotype_torch")
+    else:
+        mesh = None
+
     def prep_iter():
-        for chrom, w_id, lo, hi in windows_all:
+        for chrom, w_id, lo, hi in windows_mine:
             rng = np.random.Generator(
                 np.random.PCG64([seed, window_rng_seed(chrom), w_id])
             )
@@ -612,12 +657,15 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             _t["emit"] += time.perf_counter() - _te
 
             _tf = time.perf_counter()
-            alpha, beta = _forward_backward(
-                logE, dev(kind_all), dev(lrf), dev(lnrf), dev(lrb), dev(lnrb),
-                dev(ov_all), dev(lw_all), sm_d, fre_mode, P,
-            )
-            alpha = alpha.cpu().numpy()
-            beta = beta.cpu().numpy()
+            fb_args = (dev(kind_all), dev(lrf), dev(lnrf), dev(lrb), dev(lnrb),
+                       dev(ov_all), dev(lw_all), sm_d)
+            if mesh is not None:
+                alpha, beta = _forward_backward_mesh(
+                    mesh, logE, *fb_args, fre_mode=fre_mode, P=P)
+            else:
+                alpha, beta = _forward_backward(logE, *fb_args, fre_mode, P)
+                alpha = alpha.cpu().numpy()
+                beta = beta.cpu().numpy()
             _t["fb"] += time.perf_counter() - _tf
 
             _tp = time.perf_counter()
@@ -640,6 +688,8 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
         "posterior {post:.2f}s (non-overlapped)".format(**_t),
         func="genotype_torch",
     )
+    if n_proc > 1:
+        results = dist.merge_results_across_hosts(results)
     return results
 
 

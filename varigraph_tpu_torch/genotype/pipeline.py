@@ -1,7 +1,12 @@
 """Genotype-phase orchestration (reference Varigraph::fastq_genotype,
 src/varigraph.cpp:153-209): load graph -> per sample: count reads on the
 device, estimate the coverage model, run the scoring engine, write the VCF,
-reset the coverage."""
+reset the coverage.
+
+Several processes (parallel/dist.py, the JAX pipeline.py:115-139,178): each
+counts its round-robin share of a sample's FASTQ files, the counts merge
+across the processes, and only rank 0 writes the VCF and the counts
+checkpoint; every process keeps the same state for the next sample."""
 
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ import torch
 from ..config import VarigraphConfig
 from ..index.serialize import load_graph
 from ..index.structs import GraphIndex
+from ..ops.cuda_build import LAUNCHES
+from ..parallel import dist
+from ..parallel.mesh import Mesh, make_mesh
 from ..utils.log import log
 from .counting import count_reads
 from .coverage import estimate_hap_coverage
@@ -81,17 +89,24 @@ def genotype_one_sample(
     out_dir: str = ".",
     counts_in: str | None = None,
     counts_out: str | None = None,
+    mesh: Mesh | None = None,
 ) -> str:
-    """Count + genotype one sample; returns the output VCF path."""
+    """Count + genotype one sample; returns the output VCF path.  mesh: the
+    devices counting and the forward/backward are spread over."""
+    multi = dist.process_count() > 1
+    rank0 = dist.process_index() == 0
     _t0 = time.perf_counter()
     if counts_in:
         read_base = load_counts(gi, counts_in)
     else:
         read_base = count_reads(
-            gi.table, fastq_files, gi.kmer_len, cfg.read_batch_size,
-            cfg.max_read_len, io_threads=cfg.threads,
+            gi.table, dist.assign_files_to_process(fastq_files), gi.kmer_len, cfg.read_batch_size,
+            cfg.max_read_len, io_threads=cfg.threads, mesh=mesh,
         )
-        if counts_out:
+        if multi:
+            read_base = dist.merge_counts_across_hosts(gi.table.cov, read_base)
+        if counts_out and rank0:
+            # every process holds the same merged state; one writer
             save_counts(gi, counts_out, read_base)
     log(f"phase timing: counting {time.perf_counter() - _t0:.2f}s",
         func="genotype_one_sample")
@@ -125,24 +140,30 @@ def genotype_one_sample(
         from .engine_torch import genotype_torch
 
         results = genotype_torch(gi, cfg, hap_cov, cfg.seed, host_arrays,
-                                 device=cfg.torch_device())
+                                 device=cfg.torch_device(), mesh=mesh)
     log(f"phase timing: scoring {time.perf_counter() - _t0:.2f}s",
         func="genotype_one_sample")
 
-    os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{sample_name}.varigraph.vcf.gz")
-    _t0 = time.perf_counter()
-    write_vcf(gi, results, sample_name, out_path, cfg.min_supporting_gq)
-    log(f"phase timing: vcf write {time.perf_counter() - _t0:.2f}s",
-        func="genotype_one_sample")
+    if rank0:
+        os.makedirs(out_dir, exist_ok=True)
+        _t0 = time.perf_counter()
+        write_vcf(gi, results, sample_name, out_path, cfg.min_supporting_gq)
+        log(f"phase timing: vcf write {time.perf_counter() - _t0:.2f}s",
+            func="genotype_one_sample")
     return out_path
 
 
-def run_genotype(cfg: VarigraphConfig, out_dir: str = ".") -> list[str]:
-    """Full genotype phase over all samples in the config file."""
+def run_genotype(cfg: VarigraphConfig, out_dir: str = ".",
+                 mesh: Mesh | None = None) -> list[str]:
+    """Full genotype phase over all samples in the config file.  mesh
+    (default: ``make_mesh(cfg.mesh_devices)`` on the run's device) spreads
+    counting and the forward/backward over several devices."""
     device = cfg.torch_device()
+    if mesh is None:
+        mesh = make_mesh(cfg.mesh_devices, device)
     samples = parse_sample_config(cfg.samples_config_file)
-    gi = load_graph(cfg.input_graph_file, device=device)
+    gi = load_graph(cfg.input_graph_file, device=device, threads=cfg.threads)
     # loaded k / ploidy override the CLI (varigraph.cpp:86-89)
     cfg.kmer_len = gi.kmer_len
     cfg.vcf_ploidy = gi.vcf_ploidy
@@ -160,8 +181,12 @@ def run_genotype(cfg: VarigraphConfig, out_dir: str = ".") -> list[str]:
                 gi, cfg, sample_name, fastq_files, out_dir,
                 counts_in=cfg.load_counts_file if single else None,
                 counts_out=cfg.save_counts_file if single else None,
+                mesh=mesh,
             )
         )
         log(f"Sample: {sample_name} has been processed.", func="fastq_genotype")
         gi.table.reset_cov()
+    if LAUNCHES:
+        log(f"kernel launches: {dict(sorted(LAUNCHES.items()))}",
+            func="fastq_genotype")
     return outputs

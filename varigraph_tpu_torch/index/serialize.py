@@ -8,9 +8,8 @@ and local haplotype bitmasks), the precomputed node -> table CSR, and the
 global k-mer table.  ``save_graph`` writes the same members, dtypes, stored
 or deflated choice and ``meta`` JSON as the JAX package, so either package
 loads the other's file.  On load the table's keys and coverage go to
-``device``; the rest stays host numpy.
-
-Reading the reference binary's graph.bin is not ported yet.
+``device``; the rest stays host numpy.  ``load_graph`` reads the reference
+binary's graph.bin too (index/interop.py): any file that is not a zip.
 """
 
 from __future__ import annotations
@@ -179,15 +178,17 @@ def save_graph(gi: GraphIndex, path: str) -> None:
         func="save_graph")
 
 
-def load_graph(path: str, device: torch.device | str = "cpu") -> GraphIndex:
+def load_graph(path: str, device: torch.device | str = "cpu",
+               threads: int = 1) -> GraphIndex:
+    """A .vgt or, for any file that is not a zip, the reference binary's
+    graph.bin, whose local haplotype bits are rebuilt on ``device`` with
+    ``threads`` processes walking the contexts."""
     with open(path, "rb") as fh:
         magic = fh.read(2)
     if magic != b"PK":
-        raise ValueError(
-            f"'{path}' is not a .vgt (zip) graph file; reading the reference "
-            "binary's graph.bin is not ported yet (use varigraph_tpu to "
-            "convert it)"
-        )
+        from .interop import load_reference_graph_bin
+
+        return load_reference_graph_bin(path, device, threads)
 
     log(f"Genome Graph index loaded from file: {path}")
     with np.load(path, allow_pickle=False) as npz:

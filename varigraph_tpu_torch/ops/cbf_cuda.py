@@ -1,19 +1,28 @@
 """Wrapper of the CUDA counting Bloom filter (``csrc/cbf.cu``).
 
-``cbf_add_(filter, keys, mask, seeds)`` adds one, saturating at 255, at each
-of the kh positions of every key whose mask is set, in place.
-``cbf_count(filter, keys, seeds)`` returns each key's minimum counter.  They
-replace the XLA functions ``_positions``, ``_add`` and ``_count`` of
-``varigraph_tpu/ops/cbf.py``.
+``cbf_add_(filter, keys, mask, seeds, m, lo)`` adds one, saturating at 255,
+at each of the kh positions of every key whose mask is set, in place.
+``cbf_count(filter, keys, seeds, m, lo)`` returns each key's minimum counter.
+``filter`` holds the cells [lo, lo + filter.numel()) of a filter of m cells:
+a shard of a ``ShardedCBF``, or by default (m = filter.numel(), lo = 0) the
+whole filter; positions outside the shard are skipped, and a key with none in
+it counts 255.  They replace the XLA functions ``_positions``, ``_add`` and
+``_count`` of ``varigraph_tpu/ops/cbf.py`` and the per-shard bodies of
+``make_cbf_add_sharded`` and ``make_cbf_count_sharded``
+(``varigraph_tpu/parallel/mesh.py:205-283``).
 
 On CPU tensors they run the plain torch versions (``ops/cbf.py``).  On CUDA
 tensors they launch the kernels or raise: a failed build or launch is an
 error, never a quiet fall back to plain code.  ``LAUNCHES["cbf_add"]`` and
 ``LAUNCHES["cbf_count"]`` count kernel launches.
 
-Arguments: filter uint8 [m], m a power of two >= 4; keys int64 [N] (uint64
-bit patterns); mask bool [N]; seeds int64 [kh] (uint64 bit patterns, only
-their low 32 bits are used); all contiguous, on one device.
+Arguments: filter uint8 [m_local], m_local >= 1, 0 <= lo and
+lo + m_local <= m; on CUDA it is 4-byte aligned and its storage extends to
+a whole number of 32-bit words (the kernel updates a byte through its word);
+keys int64 [N] (uint64 bit patterns); mask bool [N]; seeds int64 [kh]
+(uint64 bit patterns, only their low 32 bits are used); all contiguous, on
+one device.  Positions are a mask when m is a power of two and an unsigned
+modulo otherwise.
 """
 
 from __future__ import annotations
@@ -29,13 +38,15 @@ from .cuda_build import LAUNCHES, KernelLibrary
 def _declare(lib: ctypes.CDLL) -> None:
     lib.vg_cbf_add.restype = ctypes.c_int
     lib.vg_cbf_add.argtypes = [
-        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_long, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     lib.vg_cbf_count.restype = ctypes.c_int
     lib.vg_cbf_count.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
-        ctypes.c_long, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
 
 
@@ -49,7 +60,7 @@ def build() -> ctypes.CDLL:
     return _LIB.load()
 
 
-def _check(filter, keys, seeds, mask=None) -> None:
+def _check(filter, keys, seeds, mask, m: int, lo: int) -> None:
     args = [("filter", filter, torch.uint8), ("keys", keys, torch.int64),
             ("seeds", seeds, torch.int64)]
     if mask is not None:
@@ -65,9 +76,10 @@ def _check(filter, keys, seeds, mask=None) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.device != filter.device:
             raise ValueError(f"{name} is on {t.device}, filter on {filter.device}")
-    m = filter.numel()
-    if m < 4 or m & (m - 1):
-        raise ValueError(f"filter size must be a power of two >= 4, got {m}")
+    m_local = filter.numel()
+    if m_local < 1 or lo < 0 or lo + m_local > m or m >= 1 << 62:
+        raise ValueError(f"the filter's {m_local} cells from {lo} are not a "
+                         f"shard of a filter of {m} cells")
     if seeds.numel() < 1:
         raise ValueError("at least one hash seed is needed")
     if mask is not None and mask.shape != keys.shape:
@@ -75,17 +87,23 @@ def _check(filter, keys, seeds, mask=None) -> None:
                          f"{tuple(keys.shape)} differ")
     if filter.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the filter runs on cpu or cuda, not {filter.device}")
-    if filter.device.type == "cuda" and filter.data_ptr() % 4:
-        raise ValueError("filter must be 4-byte aligned")
+    if filter.device.type == "cuda":
+        if filter.data_ptr() % 4:
+            raise ValueError("filter must be 4-byte aligned")
+        room = filter.untyped_storage().nbytes() - filter.storage_offset()
+        if room < -(-m_local // 4) * 4:
+            raise ValueError("the filter's storage must extend to a whole "
+                             "number of 32-bit words")
 
 
 def cbf_add_(filter: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
-             seeds: torch.Tensor) -> None:
-    """filter[p] = min(filter[p] + 1, 255) at every position p of every key
-    whose mask is set, in place."""
-    _check(filter, keys, seeds, mask)
+             seeds: torch.Tensor, m: int | None = None, lo: int = 0) -> None:
+    """filter[p - lo] = min(filter[p - lo] + 1, 255) at every position p in
+    [lo, lo + filter.numel()) of every key whose mask is set, in place."""
+    m = filter.numel() if m is None else int(m)
+    _check(filter, keys, seeds, mask, m, lo)
     if filter.device.type == "cpu":
-        cbf_add_plain(filter, keys, mask, seeds)
+        cbf_add_plain(filter, keys, mask, seeds, m, lo)
         return
     n = keys.numel()
     if n == 0:
@@ -93,20 +111,22 @@ def cbf_add_(filter: torch.Tensor, keys: torch.Tensor, mask: torch.Tensor,
     lib = build()
     with torch.cuda.device(filter.device):
         stream = torch.cuda.current_stream(filter.device).cuda_stream
-        rc = lib.vg_cbf_add(filter.data_ptr(), filter.numel(), keys.data_ptr(),
-                            mask.data_ptr(), n, seeds.data_ptr(), seeds.numel(),
-                            stream)
+        rc = lib.vg_cbf_add(filter.data_ptr(), m, lo, filter.numel(),
+                            keys.data_ptr(), mask.data_ptr(), n,
+                            seeds.data_ptr(), seeds.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"cbf_add kernel launch failed: CUDA error {rc}")
     LAUNCHES["cbf_add"] += 1
 
 
-def cbf_count(filter: torch.Tensor, keys: torch.Tensor,
-              seeds: torch.Tensor) -> torch.Tensor:
-    """uint8 [N]: each key's minimum counter over its kh positions."""
-    _check(filter, keys, seeds)
+def cbf_count(filter: torch.Tensor, keys: torch.Tensor, seeds: torch.Tensor,
+              m: int | None = None, lo: int = 0) -> torch.Tensor:
+    """uint8 [N]: each key's minimum counter over its positions in
+    [lo, lo + filter.numel()), 255 where it has none there."""
+    m = filter.numel() if m is None else int(m)
+    _check(filter, keys, seeds, None, m, lo)
     if filter.device.type == "cpu":
-        return cbf_count_plain(filter, keys, seeds)
+        return cbf_count_plain(filter, keys, seeds, m, lo)
     n = keys.numel()
     out = torch.empty(n, dtype=torch.uint8, device=filter.device)
     if n == 0:
@@ -114,9 +134,9 @@ def cbf_count(filter: torch.Tensor, keys: torch.Tensor,
     lib = build()
     with torch.cuda.device(filter.device):
         stream = torch.cuda.current_stream(filter.device).cuda_stream
-        rc = lib.vg_cbf_count(out.data_ptr(), filter.data_ptr(), filter.numel(),
-                              keys.data_ptr(), n, seeds.data_ptr(),
-                              seeds.numel(), stream)
+        rc = lib.vg_cbf_count(out.data_ptr(), filter.data_ptr(), m, lo,
+                              filter.numel(), keys.data_ptr(), n,
+                              seeds.data_ptr(), seeds.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"cbf_count kernel launch failed: CUDA error {rc}")
     LAUNCHES["cbf_count"] += 1
