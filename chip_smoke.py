@@ -33,17 +33,25 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      filter kernels must have launched; genotyping the port-built graph
      (count_packed once per batch) must agree with the truth at >= 99% of
      the sites;
-  7. the Bloom filter kernels against their plain torch version on the card,
-     filter bytes and counts exactly equal on edge cases, then both timed at
-     one genome batch (16384 x 134 keys, kh = 7) at m = 2^25 and 2^30;
+  7. the Bloom filter kernels against their plain torch versions on the
+     card, filter bytes and counts exactly equal on edge cases: the key add
+     and the count, and the fused genome add (cbf_add_codes) over genomes
+     with N runs, Ns at row edges, (AT)n and a saturating poly-A run at
+     k = 5, 16, 27, 28, at m = 2^25, 2^30 and over 3 shards of 2^25 + 1
+     cells; then, timed with their bounds at kh = 7 and m = 2^25 and 2^30,
+     the key add and the count of one genome batch (16384 x 134 keys), and
+     the fused add over that batch's bases and over a 50 Mb chromosome,
+     beside the old path (torch sketch + key add) and the plain version;
   8. the exact-count regime (``_CBF_DEVICE_MAX`` set to 1): construct must
      launch the join, and every count it fed the table must equal the same
      counter run with the plain join on the card;
   9. construct at a realistic size: a 100 Mb, 2-chromosome genome and a VCF
      of 50,000 sites x 50 samples (tools/gen_big.py's generators), a
      2^30-cell (1 GiB) filter on the card; phase times, table checks, the
-     file read back, and the kernel's filter equal to the plain version's
-     after the first 32 genome batches;
+     file read back; the genome-count phase must launch cbf_add_codes, and
+     neither the key add nor the torch sketch; its filter equal to the
+     plain version's over the whole genome and to the old path (torch
+     sketch, key add), timed beside it;
  10. the reference graph.bin: the committed 2 Mb graph written as graph.bin,
      ``genotype --load-graph graph.bin --device cuda`` through the CLI
      (count_packed once per batch, S1 must meet the 99% GT gate), the loaded
@@ -57,8 +65,9 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      must be byte-identical to one process's on the same files;
  12. the mesh: over the card's devices, or 2 logical shards of cuda:0 when
      there is one card.  Phase 9's 100 Mb genome filter built over 2 shards
-     equals phase 9's one-device filter byte for byte; a 3-shard filter
-     (m not a power of two) equals its plain version; construct of the 2 Mb
+     (cbf_add_codes on each) equals phase 9's one-device filter byte for
+     byte; a 3-shard filter (m not a power of two) filled through add_codes
+     equals its plain version; construct of the 2 Mb
      fixture with the shard threshold forced equals the committed graph.vgt
      in every member; genotype over the mesh (replicated counting,
      count_packed once per batch over the devices, window-sharded
@@ -68,9 +77,12 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
-the counting kernels and at m = 2^30 for the filter kernels, whose entries
-also carry the per-shard ``shard_ms``, ``shard_plain_ms`` and
-``shard_bound_ms``); its last line is
+the counting kernels and at m = 2^30 for the filter kernels: the key add
+and the count at one batch, with the per-shard ``shard_ms``,
+``shard_plain_ms`` and ``shard_bound_ms``; the fused add at a 50 Mb
+chromosome, with its ``old_path_ms`` and its ``batch_*`` times; the key add
+launches on no main path since the fused add, ``on_main_path`` says so);
+its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is present.
@@ -98,6 +110,7 @@ import torch
 
 import varigraph_tpu_torch.genotype.pipeline as pipeline_mod
 import varigraph_tpu_torch.index.build as build_mod
+import varigraph_tpu_torch.ops.cbf as cbf_mod
 from varigraph_tpu_torch.cli import main as cli_main
 from varigraph_tpu_torch.config import VarigraphConfig
 from varigraph_tpu_torch.genotype.counting import count_reads
@@ -109,9 +122,11 @@ from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
 from varigraph_tpu_torch.ops import cbf_cuda, join_cuda
-from varigraph_tpu_torch.ops.cbf import (CountingBloomFilter, ShardedCBF,
+from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
+                                         ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
-                                         cbf_positions, make_seeds)
+                                         cbf_positions, genome_row_codes,
+                                         genome_rows, make_seeds)
 from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.kmer import (pack_codes_np, sketch_codes,
@@ -143,7 +158,8 @@ BIG_MB, BIG_CHROMS, BIG_SITES, BIG_SAMPLES, BIG_SEED = 100, 2, 50_000, 50, 7
 BIG_FILTER_CELLS = 1 << 30                     # 1 GiB of counters at 100 Mb
 GENOME_BATCH_KEYS = 16384 * (160 - (K - 1))   # one genome batch, 2,195,456
 CBF_TIMING_KH = 7                              # kh of the 2^30 filter
-FILTER_CHECK_BATCHES = 32
+CHROM_BASES = BIG_MB * 1_000_000 // BIG_CHROMS   # one chromosome of phase 9
+CHROM_TIMING_RUNS = 3                          # timed runs at a chromosome
 PROCESS_TIMEOUT_S = 300                        # each CLI process of phase 11
 SHARD_CELLS = 1 << 29                          # per-shard timing (phase 12)
 PACKED_CASE_KS = (5, 16, 27, 28)               # k of the packed edge cases
@@ -697,9 +713,10 @@ def cbf_cases(device, fixture_genome: dict[str, str]):
     yield "one key added 300 times", m25, 12, [(one, ones[:300])], rnd[:2]
     n = sum(len(s) for s in fixture_genome.values()) - K + 1
     bf = CountingBloomFilter(n, 0.01, 0)  # the fixture's sizing (host-side)
-    seq = next(iter(fixture_genome.values()))
-    batch = next(build_mod.segment_genome_batches(seq, K))
-    keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
+    codes = torch.from_numpy(
+        encode_bases_np(next(iter(fixture_genome.values())))).to(device)
+    keys, mask = _genome_batch(genome_row_codes(
+        codes, K, 0, min(BATCH, genome_rows(codes.numel(), K))))
     yield ("one genome batch of the fixture", bf.size, bf.num_hashes,
            [(keys, mask)], keys)
 
@@ -738,27 +755,134 @@ def check_cbf(device, fixture_genome) -> int:
     return worst
 
 
+def edge_genome(k: int) -> dict[str, np.ndarray]:
+    """Two chromosomes of base codes with the cases the genome count must
+    get right: single Ns and an N run longer than k; Ns at a row's first
+    base, at its last base and in the k - 1 columns two rows share; an
+    (AT)n tract; a 2,000-base poly-A run (saturates); a chromosome that
+    ends in an N run."""
+    rng = np.random.default_rng(k)
+    step = GENOME_COLS - (k - 1)
+    c1 = rng.integers(0, 4, 12_000).astype(np.uint8)
+    c1[500] = 4
+    c1[900:900 + 2 * k + 3] = 4
+    c1[3 * step] = 4
+    c1[4 * step + GENOME_COLS - 1] = 4
+    c1[7 * step + (k - 1) // 2] = 4
+    c1[8 * step:8 * step + 2] = 4
+    c1[2000:2200] = np.tile([0, 3], 100)
+    c1[3000:5000] = 0
+    c2 = rng.integers(0, 4, 700).astype(np.uint8)
+    c2[650:] = 4
+    return {"c1": c1, "c2": c2}
+
+
+def _shard_filter(m_local: int, device) -> torch.Tensor:
+    """A shard of m_local cells whose storage ends on a whole 32-bit word."""
+    return torch.zeros(-(-m_local // 4) * 4, dtype=torch.uint8,
+                       device=device)[:m_local]
+
+
+def check_add_codes(device) -> int:
+    """cbf_add_codes_ against its plain version on the edge genomes at
+    k = 5, 16, 27, 28: over a whole filter of 2^25 and of 2^30 cells and
+    over each shard of a 3-shard filter of 2^25 + 1 cells (not a power of
+    two); returns the max abs difference of filter bytes (must be 0)."""
+    worst = 0
+    m3 = (1 << 25) + 1
+    for k in PACKED_CASE_KS:
+        genome = {c: torch.from_numpy(v).to(device)
+                  for c, v in edge_genome(k).items()}
+        seeds = CountingBloomFilter._seed_tensor(make_seeds(CBF_TIMING_KH, k),
+                                                 device)
+        layouts = [("m=2^25", 1 << 25, [(0, 1 << 25)]),
+                   ("m=2^30", 1 << 30, [(0, 1 << 30)]),
+                   ("3 shards of m=2^25+1", m3,
+                    [(i * m3 // 3, m3 // 3) for i in range(3)])]
+        for label, m, shards in layouts:
+            err = 0
+            for lo, m_local in shards:
+                fa = _shard_filter(m_local, device)
+                fb = torch.zeros(m_local, dtype=torch.uint8, device=device)
+                for codes in genome.values():
+                    cbf_cuda.cbf_add_codes_(fa, codes, k, seeds, m, lo)
+                    cbf_add_codes_plain(fb, codes, k, seeds, m, lo)
+                torch.cuda.synchronize(device)
+                err = max(err, _max_abs_diff_u8(fa, fb))
+                top = int(fb.max())
+            print(f"  add_codes k={k} {label}: kernel vs plain max_abs_err "
+                  f"{err}; last shard's max counter {top}")
+            if err:
+                fail(f"cbf_add_codes disagrees with plain at k={k}, {label}")
+            worst = max(worst, err)
+    return worst
+
+
+def codes_bound(codes: torch.Tensor, k: int, seeds: torch.Tensor,
+                m: int) -> tuple[float, str]:
+    """The fused add reads each base code once, rolls its registers over
+    each base of each row, hashes each emitted window with each seed, and
+    reads and writes each distinct filter sector it reaches (counted with
+    the plain sketch, a batch of rows at a time)."""
+    rows = genome_rows(codes.numel(), k)
+    step = GENOME_COLS - (k - 1)
+    reached = torch.zeros(-(-m // SECTOR), dtype=torch.bool, device=codes.device)
+    windows = 0
+    for r0 in range(0, rows, BATCH):
+        r1 = min(rows, r0 + BATCH)
+        values, emit = sketch_codes(genome_row_codes(codes, k, r0, r1), k)
+        v = values[emit]
+        windows += v.numel()
+        reached[cbf_positions(v, seeds, m).reshape(-1) // SECTOR] = True
+    bases = sum(min(GENOME_COLS, codes.numel() - r * step) for r in range(rows))
+    return bound(codes.numel() + 2 * SECTOR * int(reached.count_nonzero()),
+                 ROLL_OPS * bases + (WINDOW_OPS + MURMUR_OPS * seeds.numel())
+                 * windows)
+
+
+def old_genome_path(filt, codes, k, seeds):
+    """construct's genome count before the fused kernel: rows of a batch
+    through the torch sketch, then the key add."""
+    rows = genome_rows(codes.numel(), k)
+    for r0 in range(0, rows, BATCH):
+        keys, mask = _genome_batch(genome_row_codes(codes, k, r0,
+                                                    min(rows, r0 + BATCH)))
+        cbf_cuda.cbf_add_(filt, keys, mask, seeds)
+
+
 def time_cbf(device) -> tuple[dict[str, tuple], int]:
     """Kernel and plain ms of add and count at one genome batch's shape,
-    kh = 7, at m = 2^25 and 2^30: plain, kernel, kernel, plain.  Before
-    timing, holds the kernels' filter bytes and counts against plain at
-    that shape; returns (times, max abs difference)."""
+    kh = 7, at m = 2^25 and 2^30; then the fused add over that batch's bases
+    (16384 rows) and over a 50 Mb chromosome, beside the old path (torch
+    sketch + key add) and its plain version: plain, kernel, kernel, plain.
+    Before timing, holds each kernel against plain at that shape; returns
+    (times, max abs difference)."""
     gen = torch.Generator(device=device).manual_seed(3)
-    codes = torch.randint(0, 4, (BATCH, READ_LEN_PAD), generator=gen,
-                          device=device, dtype=torch.uint8)
-    keys, mask = _genome_batch(codes)
+    chrom = torch.randint(0, 4, (CHROM_BASES,), generator=gen, device=device,
+                          dtype=torch.uint8)
+    spans = {"batch": chrom[:(BATCH - 1) * (GENOME_COLS - K + 1) + GENOME_COLS],
+             "chromosome": chrom}
+    keys, mask = _genome_batch(genome_row_codes(chrom, K, 0, BATCH))
     seeds = CountingBloomFilter._seed_tensor(make_seeds(CBF_TIMING_KH, 0), device)
     out, worst = {}, 0
     for log2m in (25, 30):
-        filt = torch.zeros(1 << log2m, dtype=torch.uint8, device=device)
+        m = 1 << log2m
+        filt = torch.zeros(m, dtype=torch.uint8, device=device)
         ref = torch.zeros_like(filt)
         cbf_cuda.cbf_add_(filt, keys, mask, seeds)
         cbf_add_plain(ref, keys, mask, seeds)
         ca = cbf_cuda.cbf_count(filt, keys, seeds)
         cb = cbf_count_plain(ref, keys, seeds)
         err = max(_max_abs_diff_u8(filt, ref), _max_abs_diff_u8(ca, cb))
-        print(f"  cbf at m=2^{log2m}, {keys.numel()} keys x kh {CBF_TIMING_KH}: "
-              f"kernel vs plain max_abs_err {err}")
+        for span, codes in spans.items():
+            filt.zero_()
+            ref.zero_()
+            cbf_cuda.cbf_add_codes_(filt, codes, K, seeds)
+            cbf_add_codes_plain(ref, codes, K, seeds)
+            err = max(err, _max_abs_diff_u8(filt, ref))
+        print(f"  cbf at m=2^{log2m}, {keys.numel()} keys x kh {CBF_TIMING_KH}"
+              f" and the fused add over {CHROM_BASES} bases: kernels vs plain "
+              f"max_abs_err {err}")
         if err:
             fail(f"filter kernels disagree with plain at m=2^{log2m}")
         worst = max(worst, err)
@@ -773,12 +897,30 @@ def time_cbf(device) -> tuple[dict[str, tuple], int]:
             p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
                               time_ms(plain))
             kms, pms = min(k1, k2), min(p1, p2)
-            bms, by = cbf_bound(op, keys, mask, seeds, 1 << log2m)
+            bms, by = cbf_bound(op, keys, mask, seeds, m)
             out[f"{op} m=2^{log2m}"] = (kms, pms, bms, by)
             print(f"  cbf {op} at m=2^{log2m}, {keys.numel()} keys x kh "
                   f"{CBF_TIMING_KH}: kernel {k1:.4f}/{k2:.4f} ms, plain "
                   f"{p1:.4f}/{p2:.4f} ms, bound {bms:.4f} ms ({by}); kernel "
                   f"{keys.numel() / kms / 1e3:.1f}M keys/s")
+        for span, codes in spans.items():
+            runs = TIMING_RUNS if span == "batch" else CHROM_TIMING_RUNS
+
+            def timed(fn):
+                return time_ms(lambda: fn(filt, codes, K, seeds),
+                               before=filt.zero_, runs=runs)
+
+            p1, o1, k1 = (timed(cbf_add_codes_plain), timed(old_genome_path),
+                          timed(cbf_cuda.cbf_add_codes_))
+            k2, o2, p2 = (timed(cbf_cuda.cbf_add_codes_), timed(old_genome_path),
+                          timed(cbf_add_codes_plain))
+            bms, by = codes_bound(codes, K, seeds, m)
+            out[f"add_codes {span} m=2^{log2m}"] = (
+                min(k1, k2), min(p1, p2), bms, by, min(o1, o2))
+            print(f"  cbf add_codes at m=2^{log2m}, {span} of {codes.numel()} "
+                  f"bases: kernel {k1:.4f}/{k2:.4f} ms, old path (torch sketch "
+                  f"+ key add) {o1:.4f}/{o2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+                  f"ms, bound {bms:.4f} ms ({by})")
         del filt
     return out, worst
 
@@ -807,7 +949,8 @@ def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
     finally:
         build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = saved
     print(f"  launches {launches}; construct CLI wall {wall:.2f} s")
-    if not launches.get("count_join") or launches.get("cbf_add"):
+    if (not launches.get("count_join") or launches.get("cbf_add")
+            or launches.get("cbf_add_codes")):
         fail("the exact regime did not count through the join kernel alone")
     if len(fed) != 1:
         fail(f"the exact counter was queried {len(fed)} times, not once")
@@ -861,33 +1004,41 @@ def make_big_inputs(work: str) -> tuple[str, str]:
     return ref, vcf
 
 
-def check_big_filter(device, ref: str, queries: torch.Tensor) -> int:
-    """The kernel's filter against the plain version's after the first
-    FILTER_CHECK_BATCHES genome batches, at the construct's sizing, and the
-    kernel's counts of ``queries`` (the table's keys) read from it against
-    the plain counts; returns the max abs difference of bytes and counts."""
-    genome, _, size = read_fasta(ref)
-    kern = CountingBloomFilter(size - K + 1, 0.01, 0, device=device)
-    plain = torch.zeros_like(kern.filter)
-    batches = (b for seq in genome.values()
-               for b in build_mod.segment_genome_batches(seq, K))
-    n = 0
-    for batch in batches:
-        keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
-        kern.add(keys, mask)
-        cbf_add_plain(plain, keys, mask, kern.seeds_t)
-        n += 1
-        if n == FILTER_CHECK_BATCHES:
-            break
-    differ = int((kern.filter != plain).sum())
-    ca = cbf_cuda.cbf_count(kern.filter, queries, kern.seeds_t)
-    cb = cbf_count_plain(plain, queries, kern.seeds_t)
-    err = max(_max_abs_diff_u8(kern.filter, plain), _max_abs_diff_u8(ca, cb))
-    print(f"  filter m={kern.size} kh={kern.num_hashes}: kernel vs plain after "
-          f"{n} genome batches, {differ} counters differ, "
-          f"{int(plain.count_nonzero())} nonzero; counts of the {queries.numel()} "
-          f"table keys read from it: {int((ca != cb).sum())} differ, "
-          f"{int(ca.count_nonzero())} nonzero; max_abs_err {err}")
+def check_big_filter(device, ref: str, queries: torch.Tensor, bf,
+                     genome_secs: float) -> int:
+    """The construct's genome filter (the fused kernel) against the plain
+    version over the whole genome and against the old path (rows of a batch
+    through the torch sketch, then the key add), timed beside the
+    construct's genome-count phase; the kernel's counts of ``queries`` (the
+    table's keys) against the plain counts.  Returns the max abs difference
+    of bytes and counts."""
+    genome, _, _ = read_fasta(ref)
+    chroms = [torch.from_numpy(encode_bases_np(seq)).to(device)
+              for seq in genome.values()]
+    plain = torch.zeros_like(bf.filter)
+    for codes in chroms:
+        cbf_add_codes_plain(plain, codes, K, bf.seeds_t)
+    old = torch.zeros_like(bf.filter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for codes in chroms:
+        old_genome_path(old, codes, K, bf.seeds_t)
+    torch.cuda.synchronize()
+    old_secs = time.perf_counter() - t0
+    differ = int((bf.filter != plain).sum())
+    ca = cbf_cuda.cbf_count(bf.filter, queries, bf.seeds_t)
+    cb = cbf_count_plain(plain, queries, bf.seeds_t)
+    err = max(_max_abs_diff_u8(bf.filter, plain), _max_abs_diff_u8(ca, cb),
+              _max_abs_diff_u8(bf.filter, old))
+    print(f"  filter m={bf.size} kh={bf.num_hashes}: kernel vs plain over the "
+          f"whole genome, {differ} counters differ, {int(plain.count_nonzero())} "
+          f"nonzero; the old path (torch sketch, key add) gives the same "
+          f"filter: {torch.equal(bf.filter, old)}; counts of the "
+          f"{queries.numel()} table keys read from it: {int((ca != cb).sum())} "
+          f"differ, {int(ca.count_nonzero())} nonzero; max_abs_err {err}")
+    print(f"  genome-count phase: {genome_secs:.2f} s (construct log); the old "
+          f"path's sketch and adds over the same genome {old_secs:.2f} s (host "
+          f"clock, this run; without its host segmentation and copies)")
     return err
 
 
@@ -900,32 +1051,56 @@ def phase_big(device, work: str):
     print(f"  generated {BIG_MB} Mb x {BIG_CHROMS} chromosomes, {BIG_SITES} sites x "
           f"{BIG_SAMPLES} samples in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(work, "big.vgt")
-    made = []
+    made, phase, sketches = [], {}, collections.Counter()
 
     class Recording(CountingBloomFilter):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
 
-    saved = build_mod.CountingBloomFilter
-    build_mod.CountingBloomFilter = Recording
+    def counted(fn):
+        def call(*a, **kw):
+            sketches["torch sketch"] += 1
+            return fn(*a, **kw)
+        return call
+
+    def genome_counts(*a, **kw):
+        before, n = collections.Counter(LAUNCHES), sketches["torch sketch"]
+        bf = saved[1](*a, **kw)
+        phase["launches"] = collections.Counter(LAUNCHES) - before
+        phase["sketches"] = sketches["torch sketch"] - n
+        return bf
+
+    saved = (build_mod.CountingBloomFilter, build_mod.make_genome_cbf,
+             build_mod.sketch_codes, cbf_mod.sketch_codes)
+    build_mod.CountingBloomFilter, build_mod.make_genome_cbf = Recording, genome_counts
+    build_mod.sketch_codes = counted(saved[2])
+    cbf_mod.sketch_codes = counted(saved[3])
     try:
         LAUNCHES.clear()
         log_text, wall = construct(ref, vcf, out)
         launches = dict(LAUNCHES)
     finally:
-        build_mod.CountingBloomFilter = saved
+        (build_mod.CountingBloomFilter, build_mod.make_genome_cbf,
+         build_mod.sketch_codes, cbf_mod.sketch_codes) = saved
     if len(made) != 1:
         fail(f"the {BIG_MB} Mb construct made {len(made)} filters, not one")
-    print(f"  launches {launches}")
-    if not launches.get("cbf_add") or not launches.get("cbf_count"):
-        fail(f"the {BIG_MB} Mb construct did not launch the filter kernels")
+    print(f"  launches {launches}; in the genome-count phase "
+          f"{dict(phase['launches'])} and {phase['sketches']} torch sketch "
+          f"calls")
+    if (not phase["launches"]["cbf_add_codes"] or phase["launches"]["cbf_add"]
+            or phase["sketches"]):
+        fail("the genome-count phase did not count through cbf_add_codes "
+             "alone")
+    if not launches.get("cbf_count"):
+        fail(f"the {BIG_MB} Mb construct did not launch cbf_count")
     m = re.search(r"Counting Bloom Filter size: (\d+)", log_text)
     if not m or int(m.group(1)) != BIG_FILTER_CELLS:
         fail(f"the {BIG_MB} Mb construct did not use a {BIG_FILTER_CELLS}-cell "
              "filter")
     print("  construct phase timings:")
-    print_timings(construct_timings(log_text), wall)
+    timings = construct_timings(log_text)
+    print_timings(timings, wall)
     gi = load_graph(out, device=device)
     keys = gi.table.keys_np()
     freq = gi.table.freq_np()
@@ -935,7 +1110,8 @@ def phase_big(device, work: str):
           f"{ok}; {gi.nhap} haplotypes; {os.path.getsize(out) / 1e6:.1f} MB file")
     if not ok:
         fail(f"the {BIG_MB} Mb table is not unique, sorted and freq >= 1")
-    err = check_big_filter(device, ref, gi.table.keys)
+    err = check_big_filter(device, ref, gi.table.keys, made[0],
+                           timings["genome counts"])
     if err:
         fail(f"the filter kernels disagree with plain on the {BIG_MB} Mb genome")
     return launches, err, ref, gi, out, made[0]
@@ -1112,56 +1288,63 @@ def _mesh(device) -> Mesh:
     return mesh
 
 
-def check_sharded_big_filter(mesh, ref: str, single) -> tuple[int, float]:
-    """Phase 9's genome filter built again over the mesh; returns (max abs
-    difference from phase 9's one-device filter, seconds)."""
+def check_sharded_big_filter(mesh, ref: str, single) -> tuple[int, float, dict]:
+    """Phase 9's genome filter built again over the mesh, through
+    cbf_add_codes on every shard; returns (max abs difference from phase 9's
+    one-device filter, seconds, launches)."""
     genome, _, size = read_fasta(ref)
     saved = build_mod._CBF_SHARD_MIN
     build_mod._CBF_SHARD_MIN = 1
     try:
         torch.cuda.synchronize()
+        LAUNCHES.clear()
         t0 = time.perf_counter()
         bf = build_mod.make_genome_cbf(genome, size, K, 0, single.device, mesh)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
     finally:
         build_mod._CBF_SHARD_MIN = saved
     if not isinstance(bf, ShardedCBF) or len(bf.shards) != mesh.size:
         fail("make_genome_cbf did not take the sharded filter")
+    if launches.get("cbf_add_codes", 0) < mesh.size * len(genome) or launches.get("cbf_add"):
+        fail(f"the sharded genome filter did not go through cbf_add_codes "
+             f"alone: {launches}")
     if (bf.size, bf.num_hashes) != (single.size, single.num_hashes):
         fail("the sharded filter is sized unlike the one-device filter")
     err = max(_max_abs_diff_u8(s.to(single.device),
                                single.filter[lo:lo + bf.m_local])
               for s, lo in zip(bf.shards, bf.los))
     print(f"  {BIG_MB} Mb genome filter over {mesh.size} shards of "
-          f"{bf.m_local} cells: {secs:.2f} s; vs phase 9's one-device filter "
-          f"max_abs_err {err}")
-    return err, secs
+          f"{bf.m_local} cells: {secs:.2f} s, launches {launches}; vs phase "
+          f"9's one-device filter max_abs_err {err}")
+    return err, secs, launches
 
 
 def check_three_shards(device, fixture_genome) -> int:
     """A 3-shard filter on the card (m = 2^25 + 1, modulo addressing, shards
-    of 11,184,811 cells) against the plain version over the same shards."""
+    of 11,184,811 cells) filled through add_codes, against the plain version
+    over the same shards."""
     mesh = Mesh([device] * 3)
     n = (1 << 25) // 10     # m rounds up to 2^25, padded to a multiple of 3
     bf = ShardedCBF(n, 0.01, 0, mesh=mesh)
     plain = [torch.zeros(bf.m_local, dtype=torch.uint8, device=device)
              for _ in range(3)]
-    seq = next(iter(fixture_genome.values()))
-    adds = 0
-    for batch in build_mod.segment_genome_batches(seq, K):
-        keys, mask = _genome_batch(torch.from_numpy(batch).to(device))
-        bf.add(keys, mask)
-        for p, lo in zip(plain, bf.los):
-            cbf_add_plain(p, keys, mask, bf.seeds_t[0], bf.size, lo)
-        adds += 1
+    codes = torch.from_numpy(
+        encode_bases_np(next(iter(fixture_genome.values())))).to(device)
+    bf.add_codes(codes, K)
+    for p, lo in zip(plain, bf.los):
+        cbf_add_codes_plain(p, codes, K, bf.seeds_t[0], bf.size, lo)
+    keys, _ = _genome_batch(genome_row_codes(
+        codes, K, 0, min(BATCH, genome_rows(codes.numel(), K))))
     got = torch.from_numpy(bf.count(keys))
     want = torch.stack([cbf_count_plain(p, keys, bf.seeds_t[0], bf.size, lo)
                         for p, lo in zip(plain, bf.los)]).amin(dim=0).cpu()
     err = max(max(_max_abs_diff_u8(s, p) for s, p in zip(bf.shards, plain)),
               _max_abs_diff_u8(got, want))
     print(f"  3 shards: m={bf.size} (not a power of two), {bf.m_local} cells "
-          f"a shard, kh={bf.num_hashes}, {adds} genome batches; kernel vs plain "
+          f"a shard, kh={bf.num_hashes}, the fixture chromosome through "
+          f"add_codes; kernel vs plain "
           f"max_abs_err {err}; {int(sum(s.count_nonzero() for s in bf.shards))} "
           f"nonzero")
     if err:
@@ -1215,7 +1398,8 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
     kernels' max abs error, the per-shard times)."""
     mesh = _mesh(device)
     launches = collections.Counter()
-    err, _ = check_sharded_big_filter(mesh, ref, big_filter)
+    err, _, filter_launches = check_sharded_big_filter(mesh, ref, big_filter)
+    launches.update(filter_launches)
     if err:
         fail(f"the sharded {BIG_MB} Mb filter differs from the one-device one")
     err = max(err, check_three_shards(device, fixture_genome))
@@ -1241,7 +1425,8 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
         print(f"  sharded construct launches {dict(LAUNCHES)}")
         if len(made) != 1 or len(made[0].shards) != mesh.size:
             fail("construct did not build its filter over the mesh")
-        if LAUNCHES["cbf_add"] < mesh.size or LAUNCHES["cbf_count"] < mesh.size:
+        if (LAUNCHES["cbf_add_codes"] < mesh.size or LAUNCHES["cbf_add"]
+                or LAUNCHES["cbf_count"] < mesh.size):
             fail("the sharded construct did not launch the filter kernels "
                  "on every shard")
         if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
@@ -1368,8 +1553,10 @@ def main() -> int:
                                    os.path.join(FIXTURE, "vars.vcf.gz"), port_vgt)
         main_launches.update(LAUNCHES)
         print(f"  launches {dict(LAUNCHES)}")
-        if not LAUNCHES["cbf_add"] or not LAUNCHES["cbf_count"]:
-            fail("construct did not launch the filter kernels")
+        if (not LAUNCHES["cbf_add_codes"] or LAUNCHES["cbf_add"]
+                or not LAUNCHES["cbf_count"]):
+            fail("construct did not count its genome through cbf_add_codes "
+                 "and cbf_count")
         print_timings(construct_timings(log_text), wall)
         if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
             fail("the port-built graph differs from the committed JAX-built one")
@@ -1388,7 +1575,7 @@ def main() -> int:
 
         print("== 7. filter kernels against plain torch (tolerance: exactly "
               "equal bytes and counts)")
-        cbf_err = check_cbf(device, genome)
+        cbf_err = max(check_cbf(device, genome), check_add_codes(device))
         cbf_times, e = time_cbf(device)
         cbf_err = max(cbf_err, e)
 
@@ -1442,8 +1629,21 @@ def main() -> int:
             "launches": main_launches[name], "max_abs_err": cbf_err,
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "shard_ms": sms, "shard_plain_ms": spms,
-            "shard_bound_ms": sbms,
+            "shard_bound_ms": sbms, "on_main_path": main_launches[name] > 0,
         })
+    # the fused genome add at the main path's shape: a whole chromosome
+    kms, pms, bms, by, oms = cbf_times["add_codes chromosome m=2^30"]
+    bkms, bpms, bbms, bby, boms = cbf_times["add_codes batch m=2^30"]
+    kernels.append({
+        "name": "cbf_add_codes", "route": "cuda", "source": source.format("cbf"),
+        "replaces": "varigraph_tpu/ops/cbf.py:146",
+        "fused_with": "varigraph_tpu/ops/kmer.py:79",
+        "launches": main_launches["cbf_add_codes"], "max_abs_err": cbf_err,
+        "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "old_path_ms": oms, "batch_ms": bkms,
+        "batch_plain_ms": bpms, "batch_bound_ms": bbms,
+        "batch_old_path_ms": boms, "on_main_path": main_launches["cbf_add_codes"] > 0,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -4,8 +4,10 @@ JAX package's (varigraph_tpu/ops/{murmur3,cbf,exact_count}.py).
 
 Integer state must be bit-exact: hashes, sizing, seeds, filter bytes after
 every add (masked adds and saturation at 255 included), counts, and exact
-genome counts.  The CUDA kernel (csrc/cbf.cu) is held against the plain torch
-version on the card by the ``cuda``-marked cases."""
+genome counts; and the genome count over a chromosome's base codes
+(``add_codes``: the genome rows of segment_genome_batches, N runs, even k,
+saturation, shards).  The CUDA kernels (csrc/cbf.cu) are held against the
+plain torch versions on the card by the ``cuda``-marked cases."""
 
 import numpy as np
 import pytest
@@ -14,17 +16,48 @@ torch = pytest.importorskip("torch")
 
 from varigraph_tpu_torch.ops import cbf_cuda  # noqa: E402
 from varigraph_tpu_torch.ops.cbf import (  # noqa: E402
-    CountingBloomFilter, cbf_add_plain, cbf_count_plain, cbf_num_hashes,
-    cbf_size, make_seeds)
+    GENOME_COLS, CountingBloomFilter, ShardedCBF, cbf_add_codes_plain,
+    cbf_add_plain, cbf_count_plain, cbf_num_hashes, cbf_size, genome_row_codes,
+    genome_rows, make_seeds)
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter  # noqa: E402
 from varigraph_tpu_torch.ops.murmur3 import murmur3_x64_128_u64key  # noqa: E402
 from varigraph_tpu_torch.ops.table import count_join  # noqa: E402
+from varigraph_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 # The JAX side is imported inside the tests that use it: the machine with the
 # card has no JAX, and runs the kernel cases of this file alone with
 #   python -m pytest --noconftest -m cuda tests/test_torch_cbf.py
 
 N_FILTER = 2000   # filter sized for 2,000 keys: m = 2^15, kh = 11
+GENOME_KS = (5, 16, 27, 28)
+
+
+def _edge_genome(k: int) -> dict[str, np.ndarray]:
+    """Two chromosomes of base codes (0..3, 4 = N) with the cases the genome
+    count must get right: single Ns and an N run longer than k; Ns at a
+    row's first base, at a row's last base and in the k - 1 columns two
+    rows share; an (AT)n tract (every window a palindrome at even k); a
+    2,000-base poly-A run (one k-mer ~2,000 times: its counters saturate);
+    a chromosome that ends in an N run.  At k = 28 about half the
+    encodings have bit 63 set."""
+    rng = np.random.default_rng(k)
+    step = GENOME_COLS - (k - 1)
+    c1 = rng.integers(0, 4, 12_000).astype(np.uint8)
+    c1[500] = 4
+    c1[900:900 + 2 * k + 3] = 4
+    c1[3 * step] = 4                               # row 3's first base
+    c1[4 * step + GENOME_COLS - 1] = 4             # row 4's last base
+    c1[7 * step + (k - 1) // 2] = 4                # rows 6 and 7 share it
+    c1[8 * step:8 * step + 2] = 4                  # the first two of row 8
+    c1[2000:2200] = np.tile([0, 3], 100)           # (AT)n
+    c1[3000:5000] = 0                              # poly-A
+    c2 = rng.integers(0, 4, 700).astype(np.uint8)
+    c2[650:] = 4
+    return {"c1": c1, "c2": c2}
+
+
+def _seq(codes: np.ndarray) -> str:
+    return np.frombuffer(b"ACGTN", np.uint8)[codes].tobytes().decode()
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -173,6 +206,105 @@ def test_plain_add_is_a_per_element_saturating_increment():
                                   sim[pos].min(axis=0))
 
 
+# ---------------------------------------------------------------- genome rows
+
+@pytest.mark.parametrize("k", GENOME_KS)
+def test_genome_rows_match_jax_segmentation(k):
+    """genome_rows / genome_row_codes, the row arithmetic of the fused
+    kernel, give exactly the rows of the JAX package's
+    segment_genome_batches (here 7 rows a batch, so lengths cross batch
+    boundaries), whose last batch is padded with rows of code 4."""
+    from varigraph_tpu.index.build import segment_genome_batches
+
+    step = GENOME_COLS - (k - 1)
+    rng = np.random.default_rng(100 + k)
+    lengths = [0, 1, k - 1, k, 159, 160, 161, step + k - 1, 2 * step + k - 1,
+               *rng.integers(162, 3000, 4).tolist()]
+    for n in lengths:
+        codes = rng.integers(0, 5, n).astype(np.uint8)
+        want = [b for b in segment_genome_batches(_seq(codes), k, rows=7)]
+        want = np.concatenate(want) if want else np.zeros((0, GENOME_COLS), np.uint8)
+        rows = genome_rows(n, k)
+        got = genome_row_codes(torch.from_numpy(codes), k, 0, rows).numpy()
+        assert got.shape == (rows, GENOME_COLS), n
+        np.testing.assert_array_equal(got, want[:rows], err_msg=f"n={n}")
+        assert len(want) == -(-rows // 7) * 7 and (want[rows:] == 4).all(), n
+        # a range of rows is the same rows
+        if rows > 2:
+            np.testing.assert_array_equal(
+                genome_row_codes(torch.from_numpy(codes), k, 1, rows - 1).numpy(),
+                got[1:rows - 1])
+
+
+@pytest.mark.parametrize("k", GENOME_KS)
+def test_add_codes_matches_jax_filter(k):
+    """add_codes (on the CPU, its plain version) gives the filter bytes of
+    the JAX CountingBloomFilter fed the JAX way: segment_genome_batches,
+    the JAX sketch_codes, add."""
+    import jax.numpy as jnp
+
+    from varigraph_tpu.index.build import segment_genome_batches
+    from varigraph_tpu.ops.cbf import CountingBloomFilter as JaxCBF
+    from varigraph_tpu.ops.kmer import sketch_codes as jax_sketch
+
+    genome = _edge_genome(k)
+    n = sum(len(c) for c in genome.values()) - k + 1
+    ours, theirs = CountingBloomFilter(n, 0.01, 9), JaxCBF(n, 0.01, 9)
+    bit63 = False
+    for codes in genome.values():
+        ours.add_codes(codes, k)
+        for batch in segment_genome_batches(_seq(codes), k, rows=64):
+            values, emit = jax_sketch(jnp.asarray(batch), k)
+            theirs.add(values, emit)
+            bit63 |= bool((np.asarray(values)[np.asarray(emit)]
+                           >= np.uint64(1 << 63)).any())
+    np.testing.assert_array_equal(ours.filter.numpy(), np.asarray(theirs.filter))
+    assert int(ours.filter.max()) == 255  # the poly-A run saturated
+    assert bit63 == (k == 28)
+
+
+def test_add_codes_takes_numpy_and_tensors_and_counts_no_launch_on_cpu():
+    genome = _edge_genome(27)
+    a = CountingBloomFilter(N_FILTER, 0.01, seed=2)
+    b = CountingBloomFilter(N_FILTER, 0.01, seed=2)
+    ref = a.filter.clone()
+    before = dict(cbf_cuda.LAUNCHES)
+    for codes in genome.values():
+        a.add_codes(codes, 27)
+        b.add_codes(torch.from_numpy(codes), 27)
+        cbf_cuda.cbf_add_codes_(ref, torch.from_numpy(codes), 27, a.seeds_t)
+    assert torch.equal(a.filter, b.filter) and torch.equal(a.filter, ref)
+    assert dict(cbf_cuda.LAUNCHES) == before
+    empty = a.filter.clone()
+    a.add_codes(np.zeros(0, np.uint8), 27)  # an empty chromosome adds nothing
+    assert torch.equal(a.filter, empty)
+
+
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_sharded_add_codes_matches_one_device(n_shards):
+    """ShardedCBF.add_codes over 2 and 3 logical CPU shards equals the
+    one-device filter of the same m: at 2 shards the CountingBloomFilter's,
+    at 3 (m not a power of two, positions modulo m) the plain add over all
+    m cells."""
+    genome = _edge_genome(27)
+    n = sum(len(c) for c in genome.values()) - 26
+    sh = ShardedCBF(n, 0.01, seed=4, mesh=Mesh(["cpu"] * n_shards))
+    whole = torch.zeros(sh.size, dtype=torch.uint8)
+    for codes in genome.values():
+        sh.add_codes(codes, 27)
+        cbf_add_codes_plain(whole, torch.from_numpy(codes), 27, sh.seeds_t[0],
+                            sh.size)
+    np.testing.assert_array_equal(sh.filter_np(), whole.numpy())
+    if n_shards == 2:
+        one = CountingBloomFilter(n, 0.01, seed=4)
+        for codes in genome.values():
+            one.add_codes(codes, 27)
+        np.testing.assert_array_equal(sh.filter_np(), one.filter.numpy())
+    else:
+        assert sh.size % 3 == 0 and sh.size & (sh.size - 1)
+    assert int(whole.max()) == 255
+
+
 # ------------------------------------------------------- state and persistence
 
 def test_from_state_carries_jax_filter():
@@ -250,7 +382,8 @@ def test_wrappers_on_cpu_use_plain_and_count_no_launch():
 
 @pytest.mark.parametrize("bad", ["filter_dtype", "keys_dtype", "mask_dtype",
                                  "mask_shape", "not_pow2", "strided", "2d",
-                                 "no_seeds", "shard_past_m", "negative_lo"])
+                                 "no_seeds", "17_seeds", "shard_past_m",
+                                 "negative_lo"])
 def test_wrappers_reject_bad_arguments(bad):
     filt = torch.zeros(1 << 10, dtype=torch.uint8)
     keys = _t(np.arange(1, 65, dtype=np.uint64))
@@ -276,6 +409,8 @@ def test_wrappers_reject_bad_arguments(bad):
         keys, mask = keys.reshape(8, 8), mask.reshape(8, 8)
     elif bad == "no_seeds":
         seeds = seeds[:0]
+    elif bad == "17_seeds":
+        seeds = _t(make_seeds(17, 0))
     elif bad == "shard_past_m":
         shard = {"m": 1 << 10, "lo": 1 << 9}
     elif bad == "negative_lo":
@@ -413,3 +548,108 @@ def test_cuda_shard_kernel_matches_plain(n_shards):
         assert gpu.occupancy() == cpu.occupancy()
         assert cbf_cuda.LAUNCHES["cbf_add"] == before.get("cbf_add", 0) + launched
         assert cbf_cuda.LAUNCHES["cbf_count"] == before.get("cbf_count", 0) + n_shards
+
+
+@pytest.mark.parametrize("bad", ["codes_dtype", "codes_2d", "k0", "k29",
+                                 "17_seeds"])
+def test_add_codes_rejects_bad_arguments(bad):
+    filt = torch.zeros(1 << 10, dtype=torch.uint8)
+    codes = torch.zeros(300, dtype=torch.uint8)
+    seeds, k = _t(make_seeds(3, 0)), 27
+    if bad == "codes_dtype":
+        codes = codes.to(torch.int64)
+    elif bad == "codes_2d":
+        codes = codes.reshape(10, 30)
+    elif bad == "k0":
+        k = 0
+    elif bad == "k29":
+        k = 29
+    else:
+        seeds = _t(make_seeds(17, 0))
+    with pytest.raises((TypeError, ValueError)):
+        cbf_cuda.cbf_add_codes_(filt, codes, k, seeds)
+
+
+# ------------------------------------------------- the fused add on the card
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the filter kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", GENOME_KS)
+def test_cuda_add_codes_matches_plain(k):
+    """cbf_add_codes_ on the card against its plain version on the edge
+    genome, at the JAX sizing (m a power of two) and at a filter of
+    3 * 2^15 + 1 cells (modulo addressing), one launch a chromosome."""
+    _need_card()
+    genome = _edge_genome(k)
+    for m in (None, 3 * (1 << 15) + 1):
+        seeds = _t(make_seeds(9, k)).cuda()
+        size = m or CountingBloomFilter(14_000, 0.01, 0).size
+        words = -(-size // 4)
+        gpu = torch.zeros(4 * words, dtype=torch.uint8, device="cuda")[:size]
+        cpu = torch.zeros(size, dtype=torch.uint8, device="cuda")
+        before = cbf_cuda.LAUNCHES["cbf_add_codes"]
+        for codes in genome.values():
+            c = torch.from_numpy(codes).cuda()
+            cbf_cuda.cbf_add_codes_(gpu, c, k, seeds)
+            cbf_add_codes_plain(cpu, c, k, seeds)
+        torch.cuda.synchronize()
+        assert torch.equal(gpu, cpu), (k, m)
+        assert int(gpu.max()) == 255
+        assert cbf_cuda.LAUNCHES["cbf_add_codes"] == before + len(genome)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_cuda_sharded_add_codes_matches_plain(n_shards):
+    _need_card()
+    genome = _edge_genome(28)
+    n = sum(len(c) for c in genome.values()) - 27
+    gpu = ShardedCBF(n, 0.01, seed=4, mesh=Mesh(["cuda"] * n_shards))
+    cpu = ShardedCBF(n, 0.01, seed=4, mesh=Mesh(["cpu"] * n_shards))
+    for codes in genome.values():
+        gpu.add_codes(codes, 28)
+        cpu.add_codes(codes, 28)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(gpu.filter_np(), cpu.filter_np())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", range(1, 17))
+def test_cuda_count_at_every_kh(kh):
+    """cbf_count with kh a template parameter, at every kh the kernel
+    instantiates, on a whole filter and on the last of 3 shards."""
+    _need_card()
+    adds, queries = _case("heavy_duplicates")
+    seeds = _t(make_seeds(kh, kh)).cuda()
+    keys, mask = _t(adds[0][0]).cuda(), torch.from_numpy(adds[0][1]).cuda()
+    q = _t(queries).cuda()
+    for m, lo, m_local in ((1 << 12, 0, 1 << 12), (3 * 1001, 2002, 1001)):
+        gpu = torch.zeros(-(-m_local // 4) * 4, dtype=torch.uint8,
+                          device="cuda")[:m_local]
+        cpu = torch.zeros(m_local, dtype=torch.uint8, device="cuda")
+        cbf_cuda.cbf_add_(gpu, keys, mask, seeds, m, lo)
+        cbf_add_plain(cpu, keys, mask, seeds, m, lo)
+        got = cbf_cuda.cbf_count(gpu, q, seeds, m, lo)
+        torch.cuda.synchronize()
+        assert torch.equal(gpu, cpu)
+        assert torch.equal(got, cbf_count_plain(cpu, q, seeds, m, lo))
+
+
+@pytest.mark.cuda
+def test_cuda_more_than_16_seeds_is_an_error():
+    _need_card()
+    filt = torch.zeros(1 << 10, dtype=torch.uint8, device="cuda")
+    keys = _t(np.arange(1, 65, dtype=np.uint64)).cuda()
+    seeds = _t(make_seeds(17, 0)).cuda()
+    with pytest.raises(ValueError, match="1 to 16 hash seeds"):
+        cbf_cuda.cbf_count(filt, keys, seeds)
+    with pytest.raises(ValueError, match="1 to 16 hash seeds"):
+        cbf_cuda.cbf_add_(filt, keys, torch.ones(64, dtype=torch.bool,
+                                                 device="cuda"), seeds)
+    with pytest.raises(ValueError, match="1 to 16 hash seeds"):
+        cbf_cuda.cbf_add_codes_(filt, torch.zeros(300, dtype=torch.uint8,
+                                                  device="cuda"), 27, seeds)

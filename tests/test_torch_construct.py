@@ -194,3 +194,27 @@ def test_cuda_without_a_card_is_an_error(dataset, tmp_path):
         torch_cli(["construct", "-r", dataset["ref"], "-v", dataset["vcf"],
                    "--device", "cuda", "--save-graph", str(tmp_path / "g.vgt")])
     assert not os.path.exists(tmp_path / "g.vgt")
+
+
+@pytest.mark.parametrize("k", [27, 28])
+def test_genome_filter_of_an_n_bearing_fasta_matches_jax(k, tmp_path):
+    """make_genome_cbf on a FASTA with N runs, lower-case bases and a
+    chromosome shorter than a row: the port's filter (add_codes a
+    chromosome) equals the JAX package's (its batches through its sketch)."""
+    from varigraph_tpu_torch.io.fasta import read_fasta
+
+    rng = np.random.default_rng(k)
+    c1 = list(rng.choice(list("ACGT"), 9000))
+    c1[100:160] = "N" * 60
+    c1[1000] = "N"
+    c1[4000:4400] = "A" * 400
+    c1[5000:5300] = "acgt" * 75
+    path = tmp_path / "ref.fa"
+    path.write_text(">c1\n" + "".join(c1) + "\n>c2\nNNACGTACGTTTGACNNNN\n"
+                    + ">c3\n" + "".join(rng.choice(list("ACGTN"), 700)) + "\n")
+    fasta, _, size = read_fasta(str(path))
+    ours = torch_build.make_genome_cbf(fasta, size, k, 5)
+    theirs = jax_build.make_genome_cbf(fasta, size, k, 5)
+    assert (ours.size, ours.num_hashes) == (theirs.size, theirs.num_hashes)
+    np.testing.assert_array_equal(ours.filter.numpy(), np.asarray(theirs.filter))
+    assert int(ours.filter.max()) > 1

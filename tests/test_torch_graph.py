@@ -135,15 +135,24 @@ def test_collect_contexts_matches_jax(fast):
 
 
 def test_segment_genome_batches_matches_jax():
+    """The port cuts the genome into the JAX package's rows arithmetically
+    (ops/cbf.genome_rows, genome_row_codes); here at 40 columns, against
+    the JAX batches of 8 rows, whose last one is padded with rows of 4."""
+    from varigraph_tpu_torch.ops.cbf import genome_row_codes, genome_rows
+    from varigraph_tpu_torch.ops.sketch_ref import encode_bases_np
+
     rng = np.random.default_rng(0)
     for k in (15, 27, 28):
         seq = "".join(rng.choice(list("ACGTN"), size=1003,
                                  p=[0.24, 0.24, 0.24, 0.24, 0.04]))
-        t = list(torch_build.segment_genome_batches(seq, k, rows=8, cols=40))
-        j = list(jax_build.segment_genome_batches(seq, k, rows=8, cols=40))
-        assert len(t) == len(j) > 1
-        for a, b in zip(t, j):
-            np.testing.assert_array_equal(a, b)
+        j = np.concatenate(list(jax_build.segment_genome_batches(
+            seq, k, rows=8, cols=40)))
+        rows = genome_rows(len(seq), k, cols=40)
+        t = genome_row_codes(torch.from_numpy(encode_bases_np(seq)), k, 0,
+                             rows, cols=40).numpy()
+        assert len(j) == -(-rows // 8) * 8 > 8
+        np.testing.assert_array_equal(t, j[:rows])
+        assert (j[rows:] == 4).all()
 
 
 def test_sketch_contexts_matches_jax(monkeypatch):

@@ -6,8 +6,9 @@ SURVEY.md section 3.1):
   1. read FASTA                       (build_fasta_index)
   2. VCF -> graph nodes               (construct, host)
   3. per-node haplotype contexts     (host walk, before any device work)
-  4. genome k-mer frequencies        (make_mbf: torch sketch + the counting
-                                      Bloom filter kernel csrc/cbf.cu, split
+  4. genome k-mer frequencies        (make_mbf: the counting Bloom filter
+                                      kernel csrc/cbf.cu on each
+                                      chromosome's base codes, split
                                       over the mesh's devices from
                                       _CBF_SHARD_MIN cells when it has
                                       several; otherwise above
@@ -55,11 +56,6 @@ from ..utils.log import log
 from .graph import GenomeGraph, build_graph_from_vcf, find_node_up_down_seq
 from .structs import GraphIndex
 
-# the genome is scanned as row-segmented batches of this fixed shape
-# (matching the read-counting batch shape); rows overlap by k-1 so every
-# window is emitted exactly once
-_GENOME_ROWS = 16384
-_GENOME_COLS = 160
 # context batch: cap padded batch area (rows x padded len)
 _CTX_BATCH_AREA = 8 * 1024 * 1024
 # From this many filter cells a mesh of several devices splits the filter
@@ -73,43 +69,6 @@ _CBF_SHARD_MIN = 1 << 31
 # of the card's 80 GB; tests set this in-process to force either regime.
 # One device only: a mesh of several takes the sharded filter first.
 _CBF_DEVICE_MAX = 1 << 31
-
-
-def segment_genome_batches(seq: str, k: int,
-                           rows: int = _GENOME_ROWS,
-                           cols: int = _GENOME_COLS):
-    """Slice a chromosome into fixed-shape [rows, cols] code batches with
-    k-1 row overlap (padding code 4).
-
-    For odd k no k-mer can equal its own reverse complement (the middle base
-    would have to be self-complementary), so the rolling scan's warmup is
-    exactly k-1 bases and row segmentation emits every window exactly once --
-    identical to one continuous scan.  (For even k, a palindromic window
-    inside a row's warmup could in principle shift emissions relative to a
-    continuous scan; the CBF count of such boundary windows may then differ
-    by one.)
-    """
-    codes = encode_bases_np(seq)
-    n = len(codes)
-    step = cols - (k - 1)
-    if n == 0:
-        return
-    buf = np.full((rows, cols), 4, dtype=np.uint8)
-    row = 0
-    start = 0
-    while start < n:
-        seg = codes[start : start + cols]
-        buf[row, : len(seg)] = seg
-        row += 1
-        if row == rows:
-            yield buf
-            buf = np.full((rows, cols), 4, dtype=np.uint8)
-            row = 0
-        if start + cols >= n:
-            break
-        start += step
-    if row > 0:
-        yield buf
 
 
 def make_genome_cbf(fasta_map: dict[str, str], genome_size: int, k: int,
@@ -140,10 +99,9 @@ def make_genome_cbf(fasta_map: dict[str, str], genome_size: int, k: int,
         bf = CountingBloomFilter(n=n, p=0.01, seed=seed, device=device)
 
     for chrom, seq in fasta_map.items():
-        for batch in segment_genome_batches(seq, k):
-            values, emit = sketch_codes(torch.from_numpy(batch).to(device), k)
-            # positions 0..k-2 of a row never emit (incomplete window)
-            bf.add(values[:, k - 1:].reshape(-1), emit[:, k - 1:].reshape(-1))
+        # one copy of the chromosome's codes; the filter cuts it into the
+        # genome rows (ops/cbf.genome_rows) and sketches them itself
+        bf.add_codes(encode_bases_np(seq), k)
         log(f"Chromosome '{chrom}' processed successfully ...")
 
     log("Counting Bloom Filter constructed successfully ...")

@@ -23,12 +23,16 @@ include/counting_bloom_filter.hpp + src/counting_bloom_filter.cpp):
 Saturating +1 steps commute -- min(255, v+a+b) does not depend on the order
 of the steps -- so any order of updates gives the same filter.
 
+``add_codes`` is construct's genome count: every k-mer that a chromosome's
+base codes emit, cut into the overlapping genome rows of the JAX package's
+``segment_genome_batches`` (``genome_rows``, ``genome_row_codes``).
+
 The plain torch versions (``cbf_positions``, ``cbf_add_plain``,
-``cbf_count_plain``) work on one shard ``[lo, lo + m_local)`` of a filter of
-m cells; the single-device filter is the shard lo = 0, m_local = m.
-``ops/cbf_cuda.py`` wraps the CUDA kernel (csrc/cbf.cu) that both classes
-launch on CUDA tensors, and that falls to the plain version only for CPU
-tensors.
+``cbf_add_codes_plain``, ``cbf_count_plain``) work on one shard
+``[lo, lo + m_local)`` of a filter of m cells; the single-device filter is
+the shard lo = 0, m_local = m.  ``ops/cbf_cuda.py`` wraps the CUDA kernels
+(csrc/cbf.cu) that both classes launch on CUDA tensors, and that fall to the
+plain versions only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -38,7 +42,17 @@ import math
 import numpy as np
 import torch
 
+from .kmer import sketch_codes
 from .murmur3 import murmur3_x64_128_u64key
+
+# The genome is cut into rows of GENOME_COLS bases that overlap by k - 1, as
+# the JAX package's index/build.segment_genome_batches cuts it, and sketched a
+# row at a time (GENOME_ROWS rows a batch in the plain version).
+GENOME_ROWS = 16384
+GENOME_COLS = 160
+# kh = round(m * ln 2 / n) is 7..13 for the sizing below; the kernels take
+# at most this many seeds
+MAX_SEEDS = 16
 
 
 def cbf_size(n: int, p: float) -> int:
@@ -122,6 +136,61 @@ def cbf_count_plain(filter: torch.Tensor, keys: torch.Tensor,
     return torch.where(inr, filter[torch.where(inr, rel, 0)], 255).amin(dim=0)
 
 
+def genome_rows(n: int, k: int, cols: int = GENOME_COLS) -> int:
+    """The number of rows a chromosome of n bases is cut into: row r covers
+    the bases [r * step, r * step + cols), step = cols - (k - 1), and the last
+    row is the first that reaches the end (start + cols >= n).
+
+    Rows overlap by k - 1 bases and each is sketched from scratch.  For odd
+    k no k-mer equals its own reverse complement, so a row's warm-up is
+    exactly k - 1 bases and every window is emitted exactly once, as by one
+    continuous scan.  For even k a palindromic window inside a row's warm-up
+    can shift emissions, so a count at a row boundary may differ by one from
+    a continuous scan's; the JAX package cuts the same rows, and so gets the
+    same counts."""
+    if n == 0:
+        return 0
+    step = cols - (k - 1)
+    return 1 if n <= cols else -(-(n - cols) // step) + 1
+
+
+def genome_row_codes(codes: torch.Tensor, k: int, r0: int, r1: int,
+                     cols: int = GENOME_COLS) -> torch.Tensor:
+    """uint8 [r1 - r0, cols]: rows r0..r1-1 of a chromosome's codes (see
+    ``genome_rows``), padded with code 4 past its end."""
+    n = codes.numel()
+    rows = torch.arange(r0, r1, dtype=torch.int64, device=codes.device)
+    idx = rows[:, None] * (cols - (k - 1)) + torch.arange(
+        cols, dtype=torch.int64, device=codes.device)[None, :]
+    inside = idx < n
+    return torch.where(inside, codes[idx.clamp_(max=max(n - 1, 0))],
+                       torch.full((), 4, dtype=torch.uint8, device=codes.device))
+
+
+def cbf_add_codes_plain(filter: torch.Tensor, codes: torch.Tensor, k: int,
+                        seeds: torch.Tensor, m: int | None = None,
+                        lo: int = 0) -> None:
+    """The saturating add of every k-mer that the genome rows of a
+    chromosome's base codes (uint8 [n], 0..3, 4 = ambiguous) emit, in place:
+    the rows (``genome_row_codes``), GENOME_ROWS at a time, through the torch
+    ``sketch_codes`` and ``cbf_add_plain``."""
+    total = genome_rows(codes.numel(), k)
+    for r0 in range(0, total, GENOME_ROWS):
+        batch = genome_row_codes(codes, k, r0, min(total, r0 + GENOME_ROWS))
+        values, emit = sketch_codes(batch, k)
+        # positions 0..k-2 of a row never emit (incomplete window)
+        cbf_add_plain(filter, values[:, k - 1:].reshape(-1),
+                      emit[:, k - 1:].reshape(-1), seeds, m, lo)
+
+
+def _as_codes(codes, device) -> torch.Tensor:
+    """uint8 numpy or tensor base codes -> contiguous uint8 [n] on device."""
+    if isinstance(codes, torch.Tensor):
+        return codes.to(device, torch.uint8).reshape(-1).contiguous()
+    c = np.ascontiguousarray(codes, dtype=np.uint8).reshape(-1)
+    return torch.from_numpy(c).to(device)
+
+
 def _as_keys(hashes, device) -> torch.Tensor:
     """uint64 numpy or int64 tensor -> contiguous int64 [N] on device."""
     if isinstance(hashes, torch.Tensor):
@@ -193,6 +262,14 @@ class CountingBloomFilter:
 
         h = self._keys(hashes)
         cbf_add_(self.filter, h, _as_mask(mask, h), self.seeds_t)
+
+    def add_codes(self, codes, k: int) -> None:
+        """Saturating add of every k-mer that a chromosome's base codes
+        emit, cut into genome rows (``genome_rows``), in place."""
+        from .cbf_cuda import cbf_add_codes_
+
+        cbf_add_codes_(self.filter, _as_codes(codes, self.device), k,
+                       self.seeds_t)
 
     def count(self, hashes) -> np.ndarray:
         """uint8 [N] counts on the host."""
@@ -267,6 +344,16 @@ class ShardedCBF:
         for shard, lo, seeds in zip(self.shards, self.los, self.seeds_t):
             cbf_add_(shard, h.to(shard.device), mask.to(shard.device), seeds,
                      self.size, lo)
+
+    def add_codes(self, codes, k: int) -> None:
+        """Saturating add of every k-mer that a chromosome's base codes emit
+        (see ``CountingBloomFilter.add_codes``); every shard sketches the
+        rows and updates only its own cells."""
+        from .cbf_cuda import cbf_add_codes_
+
+        c = _as_codes(codes, self.shards[0].device)
+        for shard, lo, seeds in zip(self.shards, self.los, self.seeds_t):
+            cbf_add_codes_(shard, c.to(shard.device), k, seeds, self.size, lo)
 
     def count(self, hashes) -> np.ndarray:
         """uint8 [N] counts on the host."""

@@ -3,8 +3,8 @@
 Each kernel source under ``csrc/`` has a plain C interface.  At first use it
 is compiled with ``nvcc`` for Hopper (sm_90a) into a shared library under
 ``BUILD_DIR`` (git-ignored) and loaded with ctypes; it is rebuilt when the
-source is newer than the library.  A failed build raises: there is no fall
-back to plain code on a CUDA tensor.
+source, or a header under ``csrc/``, is newer than the library.  A failed
+build raises: there is no fall back to plain code on a CUDA tensor.
 
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
@@ -51,6 +51,12 @@ class KernelLibrary:
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
 
+    def _source_mtime(self) -> float:
+        """The newest of the source and the headers under ``csrc/``."""
+        headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                   if f.endswith(".cuh")]
+        return max(os.path.getmtime(f) for f in [self.source, *headers])
+
     def load(self) -> ctypes.CDLL:
         """Compile (if the library is missing or older than its source) and
         load.  Raises RuntimeError when nvcc fails."""
@@ -58,7 +64,7 @@ class KernelLibrary:
             if self._lib is not None:
                 return self._lib
             if (not os.path.exists(self.library)
-                    or os.path.getmtime(self.library) < os.path.getmtime(self.source)):
+                    or os.path.getmtime(self.library) < self._source_mtime()):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
                 os.close(fd)
