@@ -7,8 +7,8 @@ Needs one CUDA card, nvcc (under $CUDA_HOME or /usr/local/cuda) and this
 checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the kernel builds (csrc/join.cu and csrc/cbf.cu, one nvcc each, started
-     together), timed;
+  2. the kernel builds (csrc/join.cu, csrc/cbf.cu and csrc/fb.cu, one nvcc
+     each, started together), timed;
   3. the counting kernels of csrc/join.cu against their plain torch
      versions on the card, exactly equal on edge cases, each at its table's
      own key directory and at skewed ones: the join (count_join_) and the
@@ -22,8 +22,10 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
   4. the main path: ``varigraph_tpu_torch.cli.main(["genotype", ...,
      "--device", "cuda"])`` on the committed 2 Mb graph
      (tests/fixtures/slice2m) with 20x reads simulated from sample S1's two
-     haplotypes; count_packed must have launched once per batch, and S1's
-     genotypes must agree with the VCF's truth at >= 99% of the sites;
+     haplotypes; count_packed must have launched once per batch,
+     forward_backward at least once and the plain ``_scan`` never on the
+     card, and S1's genotypes must agree with the VCF's truth at >= 99% of
+     the sites;
   5. parity on the card: a recount with the plain count_packed gives the
      kernel's coverage exactly, and the host oracle engine (engine_np) on
      the same counts gives the same GT at every site with GPP within 2e-3;
@@ -71,14 +73,32 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      fixture with the shard threshold forced equals the committed graph.vgt
      in every member; genotype over the mesh (replicated counting,
      count_packed once per batch over the devices, window-sharded
-     forward/backward) gives phase 4's coverage and VCF; and
-     the per-shard kernels are timed at 2^29 cells per shard.
+     forward/backward through the kernel on each shard) gives phase 4's
+     coverage and VCF; and the per-shard kernels are timed at 2^29 cells per
+     shard;
+ 13. the forward/backward kernel (csrc/fb.cu) against the plain ``_scan``
+     on the card, at atol 1e-6 on edge cases (P = 2, 3, 4, 8, rec and fre;
+     S = 1, 15, 120, 253, 496; resets at the first and last node, a window
+     of pad nodes only, padded states, zero distances both ways, N = 1);
+     then at a genome-scale group (W = 256, N = 8,192, S = 120, P = 2, rec)
+     timed (the kernel 7 times, the plain version once) with its bound, its
+     largest difference from plain there, the window at row 37 bit-identical
+     to the same window alone, and two runs bit-identical;
+ 14. genotype at full width: phase 9's 100 Mb graph (101 haplotypes, so the
+     default -n 15 gives S = 120) with S1's reads at depth 10 in 2 FASTQ
+     files (tools/gen_big.py's apply_hap and write_reads from phase 9's
+     haplotypes) through the CLI on the card: phase and engine timings,
+     launches, S1's GT agreement with the generator's truth (reported, not
+     a gate); then ``genotype_torch`` on the saved counts through the kernel
+     and with the plain forward/backward routed in must give the same GT,
+     UK and NAK at every site, GPP within 2e-3.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
-the counting kernels and at m = 2^30 for the filter kernels: the key add
-and the count at one batch, with the per-shard ``shard_ms``,
+the counting kernels, at m = 2^30 for the filter kernels and at phase 13's
+group for forward_backward: the key add and the count at one batch, with
+the per-shard ``shard_ms``,
 ``shard_plain_ms`` and ``shard_bound_ms``; the fused add at a 50 Mb
 chromosome, with its ``old_path_ms`` and its ``batch_*`` times; the key add
 launches on no main path since the fused add, ``on_main_path`` says so);
@@ -97,6 +117,7 @@ import contextlib
 import gzip
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -108,11 +129,13 @@ import time
 import numpy as np
 import torch
 
+import varigraph_tpu_torch.genotype.engine_torch as engine_torch_mod
 import varigraph_tpu_torch.genotype.pipeline as pipeline_mod
 import varigraph_tpu_torch.index.build as build_mod
 import varigraph_tpu_torch.ops.cbf as cbf_mod
 from varigraph_tpu_torch.cli import main as cli_main
 from varigraph_tpu_torch.config import VarigraphConfig
+from varigraph_tpu_torch.genotype.combos import increment_vector
 from varigraph_tpu_torch.genotype.counting import count_reads
 from varigraph_tpu_torch.genotype.coverage import estimate_hap_coverage
 from varigraph_tpu_torch.genotype.engine_np import genotype_np, graph2node
@@ -121,7 +144,7 @@ from varigraph_tpu_torch.genotype.pipeline import load_counts
 from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
-from varigraph_tpu_torch.ops import cbf_cuda, join_cuda
+from varigraph_tpu_torch.ops import cbf_cuda, fb_cuda, join_cuda
 from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
@@ -163,12 +186,25 @@ CHROM_TIMING_RUNS = 3                          # timed runs at a chromosome
 PROCESS_TIMEOUT_S = 300                        # each CLI process of phase 11
 SHARD_CELLS = 1 << 29                          # per-shard timing (phase 12)
 PACKED_CASE_KS = (5, 16, 27, 28)               # k of the packed edge cases
+# the forward/backward kernel (phase 13): normalized alpha/beta agree with
+# plain to float32 rounding (sums in another order); edge cases at (P, S),
+# each in rec and fre; a genome-scale group of W windows of N nodes at S
+# states (the JAX engine's bound of 8,192 nodes a window, -n 15 diploid het)
+FB_ATOL = 1e-6
+FB_EDGE_SHAPES = ((2, 1), (2, 15), (2, 120), (2, 253), (2, 496), (3, 15),
+                  (4, 15), (8, 15))
+FB_EDGE_W, FB_EDGE_N = 4, 300
+FB_GROUP_W, FB_GROUP_N, FB_GROUP_S = 256, 8192, 120
+FB_ROW = 37                                    # the split-invariance window
+# genotype at full width (phase 14): S1's reads of phase 9's genome
+BIG_DEPTH, BIG_READ_FILES = 10.0, 2
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32
 # at 64 lanes an SM, a quarter of the data sheet's 67 TFLOP/s float32 (128
 # lanes an SM, a fused multiply-add counted as two operations).
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+FP32_FLOPS_PER_S = 67e12
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
 SECTOR = 32                                    # bytes a memory transaction moves
 # Integer operations a bound counts, each 64-bit operation as two int32 ones
 # and a 64-bit multiply as four: per base, rolling both registers and the
@@ -545,10 +581,11 @@ def called_gts(vcf_path: str) -> dict[tuple[str, int], list[int]]:
     return out
 
 
-def gt_agreement(vcf_path: str) -> tuple[int, int]:
-    """(sites agreeing, sites); a site without a record counts as 0/0 (the
-    writer leaves out 0/0 calls)."""
-    truth = truth_gts()
+def gt_agreement(vcf_path: str, truth=None) -> tuple[int, int]:
+    """(sites agreeing, sites) against ``truth`` (default: S1's GTs in the
+    fixture's VCF); a site without a record counts as 0/0 (the writer leaves
+    out 0/0 calls)."""
+    truth = truth_gts() if truth is None else truth
     called = called_gts(vcf_path)
     agree = sum(called.get(site, [0, 0]) == gt for site, gt in truth.items())
     return agree, len(truth)
@@ -599,12 +636,42 @@ def phase_timings(log_text: str) -> dict[str, float]:
             fail(f"no '{name}' phase timing in the log")
         t[name] = float(m.group(1))
     m = re.search(r"engine timing: prep ([\d.]+)s emit ([\d.]+)s fb ([\d.]+)s "
-                  r"posterior ([\d.]+)s", log_text)
+                  r"posterior ([\d.]+)s \(non-overlapped\); emit upload "
+                  r"([\d.]+)s emit device ([\d.]+)s", log_text)
     if not m:
         fail("no engine timing in the log")
-    for i, name in enumerate(("prep", "emit", "fb", "posterior")):
+    for i, name in enumerate(("prep", "emit", "fb", "posterior", "emit upload",
+                              "emit device")):
         t[name] = float(m.group(i + 1))
     return t
+
+
+@contextlib.contextmanager
+def counted_scans():
+    """Counts the plain ``_scan``'s calls by device type while it is open."""
+    calls = collections.Counter()
+    saved = engine_torch_mod._scan
+
+    def scan(logE, *a, **kw):
+        calls[logE.device.type] += 1
+        return saved(logE, *a, **kw)
+
+    engine_torch_mod._scan = scan
+    try:
+        yield calls
+    finally:
+        engine_torch_mod._scan = saved
+
+
+def check_fb_on_card(launches, scans, where: str) -> None:
+    """Fails unless the run's forward/backward launched the kernel and never
+    ran the plain ``_scan`` on the card."""
+    print(f"  {where}: forward_backward launches "
+          f"{launches.get('forward_backward', 0)}, plain _scan calls on the "
+          f"card {scans['cuda']}")
+    if launches.get("forward_backward", 0) < 1 or scans["cuda"]:
+        fail(f"{where}: the forward/backward did not go through its kernel "
+             "alone")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -972,15 +1039,16 @@ def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
 
 # ----------------------------------------------------------------- phase 9
 
-def make_big_inputs(work: str) -> tuple[str, str]:
+def make_big_inputs(work: str):
     """A BIG_MB Mb genome of BIG_CHROMS chromosomes and a VCF of BIG_SITES
-    sites x BIG_SAMPLES samples, from tools/gen_big.py's seeded generators
-    (no reads)."""
+    sites x BIG_SAMPLES samples, from tools/gen_big.py's seeded generators;
+    returns (FASTA, VCF, S1's haplotype sequences, S1's GT at each site as
+    {(chrom, pos): sorted alleles})."""
     rng = np.random.default_rng(BIG_SEED)
     names = [f"S{i + 1}" for i in range(BIG_SAMPLES)]
     chrom_len = BIG_MB * 1_000_000 // BIG_CHROMS
     ref, vcf = os.path.join(work, "big.fa"), os.path.join(work, "big.vcf.gz")
-    parts = []
+    parts, haps, truth = [], [], {}
     with open(ref, "w") as fh:
         for ci in range(BIG_CHROMS):
             chrom = f"chr{ci + 1}"
@@ -992,16 +1060,20 @@ def make_big_inputs(work: str) -> tuple[str, str]:
             pos, ref_lens, alt_lens, gts = gen_big.make_sites(
                 rng, chrom_len, BIG_SITES // BIG_CHROMS, 2 * BIG_SAMPLES)
             part = os.path.join(work, f"big_{chrom}.vcf.gz")
-            gen_big.write_vcf(part, chrom, genome, pos, ref_lens, alt_lens, gts,
-                              rng, names)
+            _, alt_strs = gen_big.write_vcf(part, chrom, genome, pos, ref_lens,
+                                            alt_lens, gts, rng, names)
             parts.append(part)
+            haps += [gen_big.apply_hap(genome, pos, ref_lens, alt_strs, gts[:, h])
+                     for h in (0, 1)]
+            truth.update({(chrom, int(p)): sorted(int(g) for g in gts[i, :2])
+                          for i, p in enumerate(pos)})
     with gzip.open(vcf, "wb", compresslevel=1) as out:
         for i, part in enumerate(parts):
             with gzip.open(part, "rb") as fh:
                 for line in fh:
                     if i == 0 or not line.startswith(b"#"):
                         out.write(line)
-    return ref, vcf
+    return ref, vcf, haps, truth
 
 
 def check_big_filter(device, ref: str, queries: torch.Tensor, bf,
@@ -1045,9 +1117,10 @@ def check_big_filter(device, ref: str, queries: torch.Tensor, bf,
 def phase_big(device, work: str):
     """Construct at BIG_MB Mb; returns (launches, the filter kernels' max
     abs difference from plain at the construct's 2^30 cells, the genome
-    FASTA, the loaded graph, its .vgt path, the construct's genome filter)."""
+    FASTA, the loaded graph, its .vgt path, the construct's genome filter,
+    S1's haplotype sequences, S1's truth)."""
     t0 = time.perf_counter()
-    ref, vcf = make_big_inputs(work)
+    ref, vcf, haps, truth = make_big_inputs(work)
     print(f"  generated {BIG_MB} Mb x {BIG_CHROMS} chromosomes, {BIG_SITES} sites x "
           f"{BIG_SAMPLES} samples in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(work, "big.vgt")
@@ -1114,7 +1187,7 @@ def phase_big(device, work: str):
                            timings["genome counts"])
     if err:
         fail(f"the filter kernels disagree with plain on the {BIG_MB} Mb genome")
-    return launches, err, ref, gi, out, made[0]
+    return launches, err, ref, gi, out, made[0], haps, truth
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1448,6 +1521,9 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
                     and int(a["read_base"]) == int(b["read_base"]))
     same_vcf = _vcf_bytes(vcf) == _vcf_bytes(vcf4)
     check_counted_per_batch(log_text, LAUNCHES, "genotype over the mesh")
+    if LAUNCHES["forward_backward"] < mesh.size:
+        fail("genotype over the mesh did not launch forward_backward on "
+             "every device")
     print(f"  genotype over the mesh: count_packed launches "
           f"{LAUNCHES['count_packed']}; counting and fb spread over it: "
           f"{spread}; coverage equal to phase 4's: {same_cov}; VCF "
@@ -1456,6 +1532,224 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
         fail("genotype over the mesh differs from one device")
     shard_times, e = time_shard(device)
     return launches, max(err, e), shard_times
+
+
+# ---------------------------------------------------------------- phase 13
+
+def fb_states(P: int, S: int, rng) -> list[list[int]]:
+    """S states of ploidy P: at P = 2 the diploid het combinations of the
+    fewest haplotypes that give S, in increment_vector's order; above, random
+    multisets of P + 2 haplotypes (every overlap class 0..P occurs)."""
+    if P == 2:
+        h = 1
+        while h * (h + 1) // 2 < S:
+            h += 1
+        return increment_vector(list(range(h)), "het", 2, h - 1)[:S]
+    return [sorted(rng.integers(0, P + 2, P).tolist()) for _ in range(S)]
+
+
+def fb_inputs(device, W: int, N: int, S: int, P: int, seed: int,
+              edges: bool) -> list[torch.Tensor]:
+    """(logE, kind, lrf, lnrf, lrb, lnrb, overlap, log_w, smask) on the
+    card: W windows of N real nodes and S states.  With ``edges``: window 0
+    resets at its first and last node and has zero distances in both
+    directions at every 7th node, window 1 holds pad nodes only, window 2
+    half its states valid (the rest padded, as a group pads a smaller
+    window) and pad nodes at its end."""
+    rng = np.random.default_rng(seed)
+    ov = np.broadcast_to(engine_torch_mod.state_overlap(fb_states(P, S, rng)),
+                         (W, S, S)).copy()
+    smask = np.ones((W, S), bool)
+    kind = np.ones((W, N), np.int32)
+    dist = rng.integers(0, 200_000, (W, 2, N))
+    if edges:
+        kind[0, [0, N - 1]] = 2
+        dist[0, :, ::7] = 0
+        kind[1] = 0
+        smask[2, S // 2 + 1:] = False
+        ov[2][~smask[2]] = 0
+        ov[2][:, ~smask[2]] = 0
+        kind[2, N - N // 4:] = 0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    logE = torch.randn((W, N, S), generator=gen, device=device) * 6.0 - 40.0
+    sm = torch.from_numpy(smask).to(device)
+    logE = torch.where(sm[:, None, :], logE, -math.inf).contiguous()
+    w = rng.random((W, S))
+    log_w = np.where(smask, np.log(w / w.sum(axis=1, keepdims=True)), 0.0)
+    lrf, lnrf = engine_torch_mod._transition_logs(dist[:, 0], 2 * BIG_SAMPLES + 1)
+    lrb, lnrb = engine_torch_mod._transition_logs(dist[:, 1], 2 * BIG_SAMPLES + 1)
+    host = [kind, lrf, lnrf, lrb, lnrb, ov, log_w.astype(np.float32)]
+    return [logE, *(torch.from_numpy(a).to(device) for a in host), sm]
+
+
+def fb_flow_steps(kind: np.ndarray) -> int:
+    """Steps of both directions that compute a flow: real nodes that are not
+    the first real node of their chain (a chain starts at the window's end
+    it is walked from and after each reset)."""
+    steps = 0
+    for k in (kind, kind[:, ::-1]):
+        real = k == 1
+        chain = np.cumsum(k == 2, axis=1) + (k.shape[1] + 1) * np.arange(
+            k.shape[0])[:, None]
+        steps += int(real.sum()) - len(np.unique(chain[real]))
+    return steps
+
+
+def fb_bound(W: int, N: int, S: int, flow_steps: int) -> tuple[float, str]:
+    """(ms, what sets it): logE read once a direction and alpha and beta
+    written (4 x W*N*S float32) through HBM, against the rec flow's 2S^2
+    float32 operations (S^2 FMAs) a flow step at the data sheet's float32
+    rate, whichever is longer."""
+    tb = 4 * W * N * S * 4 / HBM_BYTES_PER_S * 1e3
+    to = flow_steps * 2 * S * S / FP32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _fb_diff(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def phase_fb(device) -> tuple[tuple, float]:
+    """Phase 13: the kernel against plain on the edge cases, then timed at
+    the genome-scale group; returns ((kernel ms, plain ms, bound ms, bound
+    by, kernel ms in fre mode), the max abs difference from plain)."""
+    plain = engine_torch_mod._forward_backward_plain
+    worst = 0.0
+    shapes = [(P, S, FB_EDGE_N) for P, S in FB_EDGE_SHAPES] + [(2, 15, 1)]
+    for seed, (P, S, N) in enumerate(shapes):
+        t = fb_inputs(device, FB_EDGE_W, N, S, P, seed, edges=N > 1)
+        for fre in (False, True):
+            got = fb_cuda.forward_backward(*t, fre, P)
+            want = plain(*t, fre, P)
+            torch.cuda.synchronize()
+            err = _fb_diff(got, want)
+            print(f"  fb P={P} S={S} N={N} {'fre' if fre else 'rec'}: kernel vs "
+                  f"plain max_abs_err {err:.3g}")
+            if not err <= FB_ATOL:
+                fail(f"forward_backward disagrees with plain at P={P} S={S} "
+                     f"N={N} fre={fre}")
+            worst = max(worst, err)
+
+    W, N, S = FB_GROUP_W, FB_GROUP_N, FB_GROUP_S
+    t = fb_inputs(device, W, N, S, 2, 99, edges=False)
+    steps = fb_flow_steps(t[1].cpu().numpy())
+
+    def kernel():
+        return fb_cuda.forward_backward(*t, False, 2)
+
+    first = kernel()
+    kms = time_ms(kernel)
+    # the same group in fre mode, whose flow is O(S) a step: the step's
+    # skeleton (barriers, reductions, exp, loads and stores) without the S^2
+    # flow
+    fre_ms = time_ms(lambda: fb_cuda.forward_backward(*t, True, 2))
+    again = kernel()
+    torch.cuda.synchronize()
+    same_runs = all(torch.equal(x, y) for x, y in zip(first, again))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = plain(*t, False, 2)
+    end.record()
+    torch.cuda.synchronize()
+    pms = start.elapsed_time(end)
+    err = _fb_diff(first, want)
+    del want
+    one = fb_cuda.forward_backward(
+        *(x[FB_ROW:FB_ROW + 1].contiguous() for x in t), False, 2)
+    torch.cuda.synchronize()
+    same_row = all(torch.equal(o[0], f[FB_ROW]) for o, f in zip(one, first))
+    bms, by = fb_bound(W, N, S, steps)
+    print(f"  fb at W={W} N={N} S={S} P=2 rec ({steps} flow steps): kernel "
+          f"{kms:.4f} ms (median of {TIMING_RUNS}), plain {pms:.1f} ms (once), "
+          f"bound {bms:.4f} ms ({by}); the same group in fre mode "
+          f"{fre_ms:.4f} ms; kernel vs plain max_abs_err {err:.3g}; "
+          f"two runs bit-identical: {same_runs}; window {FB_ROW} alone "
+          f"bit-identical to row {FB_ROW} of the batch: {same_row}")
+    if not (err <= FB_ATOL and same_runs and same_row):
+        fail("forward_backward at the genome-scale group disagrees with plain "
+             "or is not deterministic")
+    return (kms, pms, bms, by, fre_ms), max(worst, err)
+
+
+# ---------------------------------------------------------------- phase 14
+
+def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
+    """Genotype S1 on the 100 Mb graph through the CLI, then the kernel
+    against the plain forward/backward in-process on the saved counts;
+    returns the CLI run's launches."""
+    fqs = [os.path.join(work, f"big_S1_{i}.fq.gz") for i in range(BIG_READ_FILES)]
+    t0 = time.perf_counter()
+    n_reads = gen_big.write_reads(fqs, haps, BIG_DEPTH,
+                                  np.random.default_rng(BIG_SEED + 1))
+    print(f"  wrote {n_reads} reads of {gen_big.READ_LEN} bp ({BIG_DEPTH:g}x "
+          f"total) into {len(fqs)} FASTQ files in {time.perf_counter() - t0:.1f} s")
+    cfg_path = os.path.join(work, "big_samples.cfg")
+    with open(cfg_path, "w") as fh:
+        fh.write("S1 " + " ".join(fqs) + "\n")
+    counts = os.path.join(work, "big_counts.npz")
+    LAUNCHES.clear()
+    with counted_scans() as scans:
+        t0 = time.perf_counter()
+        vcf, log_text = run_main_path("cuda", work, cfg_path, counts,
+                                      graph=big_vgt, out_name="out_big")
+        wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    check_counted_per_batch(log_text, launches, f"the {BIG_MB} Mb genotype")
+    check_fb_on_card(launches, scans, f"the {BIG_MB} Mb genotype")
+    print(f"  launches {launches}")
+    print("  phase timings:")
+    print_timings(phase_timings(log_text), wall)
+    agree, sites = gt_agreement(vcf, truth)
+    print(f"  S1 GT agrees with the generator's truth at {agree}/{sites} sites "
+          f"({agree / sites:.4f}; reported, not a gate)")
+
+    gi = load_graph(big_vgt, device=device)
+    graph2node(gi)
+    read_base = load_counts(gi, counts)
+    cfg = VarigraphConfig(device="cuda")
+    hap_cov = estimate_hap_coverage(
+        gi.table.cov_u8(), gi.table.freq_np(), gi.table.hap_words_np(),
+        gi.nhap, gi.vcf_ploidy, cfg.sample_ploidy, read_base / gi.genome_size,
+        cfg.use_depth)
+    shapes = []
+    saved = engine_torch_mod._forward_backward
+
+    def recorded(logE, *a):
+        shapes.append(tuple(logE.shape))
+        return fb_cuda.forward_backward(logE, *a)
+
+    try:
+        engine_torch_mod._forward_backward = recorded
+        t0 = time.perf_counter()
+        res_k = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
+        t_k = time.perf_counter() - t0
+        engine_torch_mod._forward_backward = engine_torch_mod._forward_backward_plain
+        t0 = time.perf_counter()
+        res_p = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
+        t_p = time.perf_counter() - t0
+    finally:
+        engine_torch_mod._forward_backward = saved
+    if set(res_k) != set(res_p) or not res_k:
+        fail("the kernel and the plain forward/backward scored different sites")
+    node_at = {(c, n.start): n for c in gi.graph.nodes for n in gi.graph.nodes[c]}
+
+    def gt(rec, key):
+        return sorted(int(node_at[key].hap_gt[h]) for h in rec.hap_vec)
+
+    mism = sum(gt(res_k[k], k) != gt(res_p[k], k) or res_k[k].uk != res_p[k].uk
+               or res_k[k].kmer_num_vec != res_p[k].kmer_num_vec for k in res_k)
+    gpp = max(abs(res_k[k].probability - res_p[k].probability) for k in res_k)
+    print(f"  genotype_torch on the saved counts, {len(res_k)} sites over "
+          f"groups (W, N, S) {shapes}: the kernel {t_k:.2f} s, the plain "
+          f"forward/backward routed in {t_p:.2f} s (host clock); {mism} GT/UK/NAK "
+          f"mismatches, max |GPP diff| {gpp:.3g}")
+    if not shapes or any(s[2] != 120 for s in shapes):
+        fail(f"the {BIG_MB} Mb genotype did not score at S = 120")
+    if mism or gpp > GPP_TOL:
+        fail("the kernel's calls differ from the plain forward/backward's")
+    return launches
 
 
 def main() -> int:
@@ -1484,8 +1778,8 @@ def main() -> int:
         mod.build()
         return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for lib, secs in pool.map(timed_build, (join_cuda, cbf_cuda)):
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for lib, secs in pool.map(timed_build, (join_cuda, cbf_cuda, fb_cuda)):
             print(f"  built {lib} in {secs:.2f} s")
 
     print("== 3. counting kernels against plain torch (tolerance: exactly "
@@ -1499,12 +1793,14 @@ def main() -> int:
         cfg_path, fq = simulate_reads(work)
         counts = os.path.join(work, "counts.npz")
         LAUNCHES.clear()
-        t0 = time.perf_counter()
-        vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
+        with counted_scans() as scans:
+            t0 = time.perf_counter()
+            vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
+            wall = time.perf_counter() - t0
         vcf4 = vcf
-        wall = time.perf_counter() - t0
         main_launches = collections.Counter(LAUNCHES)
         nbatches = check_counted_per_batch(log_text, LAUNCHES, "genotype")
+        check_fb_on_card(LAUNCHES, scans, "genotype")
         m = re.search(r"\(table on (\S+)\)", log_text)
         table_dev = m.group(1) if m else "?"
         print(f"  count_packed launches {LAUNCHES['count_packed']}, batches "
@@ -1585,8 +1881,8 @@ def main() -> int:
         err = max(err, e)
 
         print(f"== 9. main path: construct at {BIG_MB} Mb on the card")
-        big_launches, e, big_ref, big_gi, big_vgt, big_filter = phase_big(
-            device, work)
+        (big_launches, e, big_ref, big_gi, big_vgt, big_filter, big_haps,
+         big_truth) = phase_big(device, work)
         main_launches.update(big_launches)
         cbf_err = max(cbf_err, e)
 
@@ -1604,6 +1900,15 @@ def main() -> int:
         main_launches.update(mesh_launches)
         cbf_err = max(cbf_err, e)
         del big_filter
+
+        print("== 13. the forward/backward kernel against plain torch "
+              f"(tolerance: atol {FB_ATOL:g} on alpha/beta), then timed")
+        fb_times, fb_err = phase_fb(device)
+
+        print(f"== 14. main path: genotype of the {BIG_MB} Mb graph at S = 120")
+        main_launches.update(phase_big_genotype(device, work, big_vgt,
+                                                big_haps, big_truth))
+        del big_haps
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
@@ -1643,6 +1948,14 @@ def main() -> int:
         "library_ms": None, "old_path_ms": oms, "batch_ms": bkms,
         "batch_plain_ms": bpms, "batch_bound_ms": bbms,
         "batch_old_path_ms": boms, "on_main_path": main_launches["cbf_add_codes"] > 0,
+    })
+    kms, pms, bms, by, fre_ms = fb_times
+    kernels.append({
+        "name": "forward_backward", "route": "cuda", "source": source.format("fb"),
+        "replaces": "varigraph_tpu/genotype/engine_jax.py:192",
+        "launches": main_launches["forward_backward"], "max_abs_err": fb_err,
+        "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "fre_ms": fre_ms,
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ Tolerances and their reasons:
     alpha/beta (values in [0, 1]); float32 contractions summed in another
     order.  Measured: at most 1.2e-7.
   * whole engine: the same GT, UK and NAK at every site, GPP within 2e-3
-    (the tolerance of tests/test_engine_parity.py).
+    (the tolerance of tests/test_engine_parity.py), diploid and tetraploid.
 """
 
 import os
@@ -133,15 +133,13 @@ def test_forward_backward_matches_jax(fre):
 
 # ---------------------------------------------------------------- engines
 
-@pytest.fixture(scope="module")
-def indexes(tmp_path_factory):
-    """The same graph and counts in both packages."""
-    out = str(tmp_path_factory.mktemp("engine"))
-    paths, _ = generate_dataset(out, seed=21, chrom_lens={"chr1": 6000},
-                                n_variants=25, samples=("S1", "S2"), depth=30.0)
+def _build_indexes(out, ploidy=2, **kw):
+    """The same graph and counts in both packages, built from a data_gen
+    dataset of the given ploidy (graph and sample)."""
+    paths, _ = generate_dataset(out, ploidy=ploidy, **kw)
     jgi = construct_graph_index(JaxConfig(ref_file=paths["ref"],
                                           vcf_file=paths["vcf"], kmer_len=27,
-                                          seed=0))
+                                          seed=0, vcf_ploidy=ploidy))
     vgt = os.path.join(out, "graph.vgt")
     save_graph(jgi, vgt)
     jax_graph2node(jgi)
@@ -149,12 +147,29 @@ def indexes(tmp_path_factory):
                             n_devices=1)
     hap_cov = estimate_hap_coverage(
         jgi.table.cov_u8(), jgi.table.freq_np(), jgi.table.hap_words_np(),
-        jgi.nhap, jgi.vcf_ploidy, 2, read_base / jgi.genome_size, False)
+        jgi.nhap, jgi.vcf_ploidy, ploidy, read_base / jgi.genome_size, False)
 
     tgi = load_graph(vgt, device="cpu")
     graph2node(tgi)
     tgi.table.cov.copy_(torch.from_numpy(np.asarray(jgi.table.cov).astype(np.int32)))
     return jgi, tgi, hap_cov
+
+
+@pytest.fixture(scope="module")
+def indexes(tmp_path_factory):
+    """The same graph and counts in both packages."""
+    return _build_indexes(str(tmp_path_factory.mktemp("engine")), seed=21,
+                          chrom_lens={"chr1": 6000}, n_variants=25,
+                          samples=("S1", "S2"), depth=30.0)
+
+
+@pytest.fixture(scope="module")
+def indexes_tetraploid(tmp_path_factory):
+    """A tetraploid graph and sample, as tests/test_modes.py builds the JAX
+    package's."""
+    return _build_indexes(str(tmp_path_factory.mktemp("engine4")), ploidy=4,
+                          seed=31, chrom_lens={"chr1": 4000}, n_variants=15,
+                          samples=("S1", "S2"), depth=40.0)
 
 
 def _gts(gi, res):
@@ -163,18 +178,22 @@ def _gts(gi, res):
             for k, r in res.items()}
 
 
-def _configs(mode, sample_type, granularity):
+def _configs(mode, sample_type, granularity, ploidy=2):
     kw = dict(transition_pro_type=mode, sample_type=sample_type,
-              granularity_bp=granularity, seed=0)
+              granularity_bp=granularity, seed=0, vcf_ploidy=ploidy,
+              sample_ploidy=ploidy)
     return JaxConfig(**kw), VarigraphConfig(device="cpu", **kw)
 
 
-@pytest.mark.parametrize("mode,sample_type,granularity", [
-    ("rec", "het", 1_000_000), ("fre", "het", 1_000_000),
-    ("rec", "hom", 1_000_000), ("rec", "het", 1000)])
-def test_genotype_torch_matches_jax(indexes, mode, sample_type, granularity):
-    jgi, tgi, hap_cov = indexes
-    jcfg, tcfg = _configs(mode, sample_type, granularity)
+@pytest.mark.parametrize("mode,sample_type,granularity,ploidy", [
+    ("rec", "het", 1_000_000, 2), ("fre", "het", 1_000_000, 2),
+    ("rec", "hom", 1_000_000, 2), ("rec", "het", 1000, 2),
+    ("rec", "het", 1_000_000, 4)])
+def test_genotype_torch_matches_jax(request, mode, sample_type, granularity,
+                                    ploidy):
+    jgi, tgi, hap_cov = request.getfixturevalue(
+        "indexes_tetraploid" if ploidy == 4 else "indexes")
+    jcfg, tcfg = _configs(mode, sample_type, granularity, ploidy)
     want = ej.genotype_jax(jgi, jcfg, hap_cov, 0)
     got = et.genotype_torch(tgi, tcfg, hap_cov, 0, device="cpu")
     assert set(got) == set(want) and want

@@ -124,7 +124,7 @@ def main() -> int:
                  lambda: genotype_torch(gi, cfg, hap_cov, 0, device=dev))
 
         print(f"== construct at {chip_smoke.BIG_MB} Mb")
-        ref, vcf = chip_smoke.make_big_inputs(work)
+        ref, vcf, _, _ = chip_smoke.make_big_inputs(work)
         ccfg = VarigraphConfig(ref_file=ref, vcf_file=vcf, kmer_len=k,
                                device="cuda")
         profiled("construct_graph_index", lambda: construct_graph_index(ccfg))

@@ -10,9 +10,11 @@ src/genotype.cpp -- see its docstring for the file:line map):
     rescaling, Poisson/geometric scoring) are selects over
     [windows, nodes, kmers, haps/states] tensors, and the per-state copy-count
     sums are two contractions against the state-count matrix.
-  * forward/backward: ``_forward_backward`` loops over nodes, batched over
-    windows.  The transition is P+1 class masks times per-step scalar
-    weights; ``kind`` resets the chain or skips pad nodes.
+  * forward/backward: ``_forward_backward`` runs the hand kernel
+    ``csrc/fb.cu`` on the card (``ops/fb_cuda.py``): one CTA a window and
+    direction walks the nodes.  Its plain version, ``_scan``, loops over
+    nodes batched over windows; the transition is P+1 class masks times
+    per-step scalar weights.  ``kind`` resets the chain or skips pad nodes.
   * window prep and posterior aggregation (string-keyed genotype grouping,
     NAK/CAK/UK) stay on the host, copied from the JAX engine.
   * several devices and processes (engine_jax.py:537-551,604-625,781-784):
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..index.structs import GraphIndex
+from ..ops.fb_cuda import forward_backward
 from ..ops.table import pack_hapbits
 from ..parallel import dist
 from ..parallel.mesh import Mesh
@@ -201,7 +204,7 @@ def _scan(logE, kind, log_rec, log_norec, M, e_lw, smask, uniform,
     return out
 
 
-def _forward_backward(
+def _forward_backward_plain(
     logE,        # [W, N, S] f32
     kind,        # [W, N] int32  0=pad 1=real 2=reset
     log_rec_f, log_norec_f,  # [W, N] f32 (forward distances)
@@ -212,7 +215,8 @@ def _forward_backward(
     fre_mode: bool,
     P: int,
 ):
-    """Returns (alpha, beta) [W, N, S].  Windows are independent chains."""
+    """Returns (alpha, beta) [W, N, S] in plain torch: P+1 overlap-class
+    masks and a ``_scan`` a direction.  Windows are independent chains."""
     classes = torch.arange(P + 1, dtype=overlap.dtype, device=overlap.device)
     M = (overlap[:, None, :, :] == classes[None, :, None, None]).to(
         torch.float32)                                        # [W, P+1, S, S]
@@ -224,6 +228,11 @@ def _forward_backward(
     beta = _scan(logE, kind, log_rec_b, log_norec_b, M, e_lw, smask, uniform,
                  fre_mode, P, reverse=True)
     return alpha, beta
+
+
+# the scoring's forward/backward: the hand kernel csrc/fb.cu on CUDA tensors,
+# _forward_backward_plain on CPU tensors
+_forward_backward = forward_backward
 
 
 # ======================================================================
@@ -283,18 +292,7 @@ class _WindowPrep:
         )
         self.used_haps = sorted({h for s in self.states for h in s})
 
-        # state-overlap matrix: |multiset intersection| of haplotype combos
-        # (genotype.cpp:1217-1227) -- sum over haps of min(count_i, count_j)
-        S = len(self.states)
-        hap_list = self.used_haps
-        hap_pos = {h: i for i, h in enumerate(hap_list)}
-        cnt = np.zeros((S, len(hap_list)), np.int32)
-        for si, st in enumerate(self.states):
-            for h in st:
-                cnt[si, hap_pos[h]] += 1
-        self.overlap = np.minimum(cnt[:, None, :], cnt[None, :, :]).sum(
-            axis=2, dtype=np.int32
-        )
+        self.overlap = state_overlap(self.states)
 
         # scorable nodes (genotype.cpp:257-277), via the dense per-chrom
         # metadata (gt_len) instead of per-node Python attribute walks
@@ -396,6 +394,20 @@ class _WindowPrep:
             )
 
 
+def state_overlap(states: list[list[int]]) -> np.ndarray:
+    """[S, S] int32 state-overlap matrix: the |multiset intersection| of
+    each pair of haplotype combos (genotype.cpp:1217-1227), the sum over
+    haplotypes of min(count_i, count_j)."""
+    haps = sorted({h for s in states for h in s})
+    hap_pos = {h: i for i, h in enumerate(haps)}
+    cnt = np.zeros((len(states), len(hap_pos)), np.int32)
+    for si, st in enumerate(states):
+        for h in st:
+            cnt[si, hap_pos[h]] += 1
+    return np.minimum(cnt[:, None, :], cnt[None, :, :]).sum(axis=2,
+                                                           dtype=np.int32)
+
+
 def state_count_matrix(state_u: np.ndarray, U: int) -> np.ndarray:
     """[S, P] used-hap indices -> [U, S] f32 copy counts per state."""
     S = state_u.shape[0]
@@ -482,7 +494,8 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     # ~3 decimal digits -- too few for the 2e-3 GPP agreement with the
     # oracle engines
     torch.backends.cuda.matmul.allow_tf32 = False
-    _t = {"prep": 0.0, "emit": 0.0, "fb": 0.0, "post": 0.0}
+    _t = {"prep": 0.0, "emit": 0.0, "fb": 0.0, "post": 0.0,
+          "emit_upload": 0.0, "emit_device": 0.0}
     if host_arrays is not None:
         cov_u8, freq_np, hap_words, refflag = host_arrays
     else:
@@ -639,11 +652,14 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             sc_d = dev(sc_all)
             sm_d = dev(sm_all)
             logE = torch.empty((G, N, S), dtype=torch.float32, device=device)
+            # each chunk's upload and device compute are timed apart
+            # (synchronized), the evidence for an emissions kernel
             for g0 in range(0, G, gc):
                 g1 = g0 + gc
                 for n0 in range(0, N, nc):
                     n1 = n0 + nc
-                    logE[g0:g1, n0:n1] = _emissions_body(
+                    _tu = time.perf_counter()
+                    inputs = (
                         dev(c_all[g0:g1, n0:n1]).to(torch.int32),
                         dev(f_all[g0:g1, n0:n1]).to(torch.int32),
                         dev(flag_all[g0:g1, n0:n1]),
@@ -651,9 +667,14 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                         words(bits_all[g0:g1, n0:n1]),
                         words(local_all[g0:g1, n0:n1]),
                         dev(gt0_all[g0:g1, n0:n1]),
-                        sc_d[g0:g1], sm_d[g0:g1], *scalars,
                     )
-            _sync(device)
+                    _sync(device)
+                    _tc = time.perf_counter()
+                    _t["emit_upload"] += _tc - _tu
+                    logE[g0:g1, n0:n1] = _emissions_body(
+                        *inputs, sc_d[g0:g1], sm_d[g0:g1], *scalars)
+                    _sync(device)
+                    _t["emit_device"] += time.perf_counter() - _tc
             _t["emit"] += time.perf_counter() - _te
 
             _tf = time.perf_counter()
@@ -685,7 +706,8 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
         post_pool.shutdown(wait=True)
     log(
         "engine timing: prep {prep:.2f}s emit {emit:.2f}s fb {fb:.2f}s "
-        "posterior {post:.2f}s (non-overlapped)".format(**_t),
+        "posterior {post:.2f}s (non-overlapped); emit upload "
+        "{emit_upload:.3f}s emit device {emit_device:.3f}s".format(**_t),
         func="genotype_torch",
     )
     if n_proc > 1:
