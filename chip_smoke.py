@@ -77,13 +77,24 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      coverage and VCF; and the per-shard kernels are timed at 2^29 cells per
      shard;
  13. the forward/backward kernel (csrc/fb.cu) against the plain ``_scan``
-     on the card, at atol 1e-6 on edge cases (P = 2, 3, 4, 8, rec and fre;
-     S = 1, 15, 120, 253, 496; resets at the first and last node, a window
-     of pad nodes only, padded states, zero distances both ways, N = 1);
-     then at a genome-scale group (W = 256, N = 8,192, S = 120, P = 2, rec)
-     timed (the kernel 7 times, the plain version once) with its bound, its
-     largest difference from plain there, the window at row 37 bit-identical
-     to the same window alone, and two runs bit-identical;
+     on the card, at atol 1e-6 and bit-identical over two runs on edge cases
+     (P = 2, 3, 4, 8, rec and fre; S = 1, 15, 120, 253, 496, 780, 1275,
+     3081; resets at the first and last node, a window of pad nodes only,
+     padded states, zero distances both ways, N = 1; at S = 120 a dense
+     random overlap, all class 0, all class P, classes above P, and
+     distances so large that rec = norec; at S = 780 a dense overlap, whose
+     lists are read from device memory; one window at the most states a
+     launch takes); a window alone bit-identical to itself in a batch beside
+     a window of dense overlap at S = 120 and 465; then at genome-scale
+     groups (W = 256, N = 8,192, P = 2) at S = 120 and S = 465 (-n 30),
+     each timed in rec and fre mode (the wrapper 7 times, its class-list
+     layout alone, the plain version once) with its bound from the overlap's
+     nonzero entries and the dense one, the gather's shared-memory
+     wavefronts as a model predicts them from the layout (not a profiler
+     reading), its largest difference from plain
+     (all 256 windows at S = 120, the first 2 at S = 465) and two runs
+     bit-identical; at S = 120 the window at row 37 bit-identical to the
+     same window alone;
  14. genotype at full width: phase 9's 100 Mb graph (101 haplotypes, so the
      default -n 15 gives S = 120) with S1's reads at depth 10 in 2 FASTQ
      files (tools/gen_big.py's apply_hap and write_reads from phase 9's
@@ -97,7 +108,9 @@ Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
 the counting kernels, at m = 2^30 for the filter kernels and at phase 13's
-group for forward_backward: the key add and the count at one batch, with
+S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
+and dense-bound figures and the S = 465 group's under ``s465``: the key add
+and the count at one batch, with
 the per-shard ``shard_ms``,
 ``shard_plain_ms`` and ``shard_bound_ms``; the fused add at a 50 Mb
 chromosome, with its ``old_path_ms`` and its ``batch_*`` times; the key add
@@ -191,11 +204,21 @@ PACKED_CASE_KS = (5, 16, 27, 28)               # k of the packed edge cases
 # each in rec and fre; a genome-scale group of W windows of N nodes at S
 # states (the JAX engine's bound of 8,192 nodes a window, -n 15 diploid het)
 FB_ATOL = 1e-6
-FB_EDGE_SHAPES = ((2, 1), (2, 15), (2, 120), (2, 253), (2, 496), (3, 15),
-                  (4, 15), (8, 15))
+# S = 780: one state a thread, the lists in shared memory (device memory with
+# a dense overlap); 1275 and 3081: the wide kernel, any states a thread
+FB_EDGE_SHAPES = ((2, 1), (2, 15), (2, 120), (2, 253), (2, 496), (2, 780),
+                  (2, 1275), (2, 3081), (3, 15), (4, 15), (8, 15))
 FB_EDGE_W, FB_EDGE_N = 4, 300
 FB_GROUP_W, FB_GROUP_N, FB_GROUP_S = 256, 8192, 120
+# overlaps the class lists treat apart, and rec = norec, at P = 2, S = 120
+FB_EDGE_VARIANTS = ("dense", "all_zero", "all_P", "above_P", "far")
+# the group at -n 30 (the diploid het states of 30 haplotypes), held against
+# plain on its first windows
+FB_BIG_S, FB_BIG_PLAIN_W = 465, 2
 FB_ROW = 37                                    # the split-invariance window
+# the split invariance beside a dense window: W windows of N nodes at each S
+FB_MIXED_W, FB_MIXED_N = 4, 512
+FB_MAX_N = 12                  # nodes of the case at the most states a launch takes
 # genotype at full width (phase 14): S1's reads of phase 9's genome
 BIG_DEPTH, BIG_READ_FILES = 10.0, 2
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
@@ -1548,17 +1571,43 @@ def fb_states(P: int, S: int, rng) -> list[list[int]]:
     return [sorted(rng.integers(0, P + 2, P).tolist()) for _ in range(S)]
 
 
+def fb_pair_overlap(states: list[list[int]], device) -> np.ndarray:
+    """[S, S] int32 overlap of diploid states, formed on the card: the larger
+    matching of two pairs, max([a = c] + [b = d], [a = d] + [b = c]), which is
+    state_overlap's multiset intersection for P = 2 without its
+    [S, S, haplotypes] intermediate."""
+    st = torch.tensor(states, dtype=torch.int32, device=device)
+    a, b = st[:, 0], st[:, 1]
+    same = (a[:, None] == a[None, :]).int() + (b[:, None] == b[None, :]).int()
+    cross = (a[:, None] == b[None, :]).int() + (b[:, None] == a[None, :]).int()
+    return torch.maximum(same, cross).to(torch.int32).cpu().numpy()
+
+
 def fb_inputs(device, W: int, N: int, S: int, P: int, seed: int,
-              edges: bool) -> list[torch.Tensor]:
+              edges: bool, variant: str | None = None) -> list[torch.Tensor]:
     """(logE, kind, lrf, lnrf, lrb, lnrb, overlap, log_w, smask) on the
     card: W windows of N real nodes and S states.  With ``edges``: window 0
     resets at its first and last node and has zero distances in both
     directions at every 7th node, window 1 holds pad nodes only, window 2
     half its states valid (the rest padded, as a group pads a smaller
-    window) and pad nodes at its end."""
+    window) and pad nodes at its end.  ``variant`` (FB_EDGE_VARIANTS)
+    rewrites the overlap or the distances."""
     rng = np.random.default_rng(seed)
-    ov = np.broadcast_to(engine_torch_mod.state_overlap(fb_states(P, S, rng)),
-                         (W, S, S)).copy()
+    states = fb_states(P, S, rng)
+    one = (fb_pair_overlap(states, device) if P == 2
+           else engine_torch_mod.state_overlap(states))
+    ov = np.broadcast_to(one, (W, S, S)).copy()
+    del one
+    if variant == "dense":          # a random class 0..P in every entry
+        ov = rng.integers(0, P + 1, (W, S, S)).astype(np.int32)
+    elif variant == "all_zero":
+        ov[:] = 0
+    elif variant == "all_P":
+        ov[:] = P
+    elif variant == "above_P":      # classes above P weigh 0
+        ov[0, 1, 2] = P + 3
+        ov[3, :, 5] = P + 1
+        ov[3, 7, :] = 255
     smask = np.ones((W, S), bool)
     kind = np.ones((W, N), np.int32)
     dist = rng.integers(0, 200_000, (W, 2, N))
@@ -1570,6 +1619,8 @@ def fb_inputs(device, W: int, N: int, S: int, P: int, seed: int,
         ov[2][~smask[2]] = 0
         ov[2][:, ~smask[2]] = 0
         kind[2, N - N // 4:] = 0
+    if variant == "far":            # exp(-d / n) is 0: rec = norec
+        dist[:] = 10 ** 14
     gen = torch.Generator(device=device).manual_seed(seed)
     logE = torch.randn((W, N, S), generator=gen, device=device) * 6.0 - 40.0
     sm = torch.from_numpy(smask).to(device)
@@ -1578,61 +1629,86 @@ def fb_inputs(device, W: int, N: int, S: int, P: int, seed: int,
     log_w = np.where(smask, np.log(w / w.sum(axis=1, keepdims=True)), 0.0)
     lrf, lnrf = engine_torch_mod._transition_logs(dist[:, 0], 2 * BIG_SAMPLES + 1)
     lrb, lnrb = engine_torch_mod._transition_logs(dist[:, 1], 2 * BIG_SAMPLES + 1)
+    if variant == "far" and not (np.array_equal(lrf, lnrf)
+                                 and np.array_equal(lrb, lnrb)):
+        fail("the far distances did not give rec = norec")
     host = [kind, lrf, lnrf, lrb, lnrb, ov, log_w.astype(np.float32)]
     return [logE, *(torch.from_numpy(a).to(device) for a in host), sm]
 
 
-def fb_flow_steps(kind: np.ndarray) -> int:
-    """Steps of both directions that compute a flow: real nodes that are not
-    the first real node of their chain (a chain starts at the window's end
-    it is walked from and after each reset)."""
-    steps = 0
+def fb_flow_steps(kind: np.ndarray) -> np.ndarray:
+    """Each window's steps of both directions that compute a flow: real
+    nodes that are not the first real node of their chain (a chain starts at
+    the window's end it is walked from and after each reset)."""
+    steps = np.zeros(kind.shape[0], np.int64)
     for k in (kind, kind[:, ::-1]):
-        real = k == 1
-        chain = np.cumsum(k == 2, axis=1) + (k.shape[1] + 1) * np.arange(
-            k.shape[0])[:, None]
-        steps += int(real.sum()) - len(np.unique(chain[real]))
+        for w in range(k.shape[0]):
+            real = k[w] == 1
+            steps[w] += int(real.sum()) - len(np.unique(np.cumsum(k[w] == 2)[real]))
     return steps
 
 
-def fb_bound(W: int, N: int, S: int, flow_steps: int) -> tuple[float, str]:
-    """(ms, what sets it): logE read once a direction and alpha and beta
-    written (4 x W*N*S float32) through HBM, against the rec flow's 2S^2
-    float32 operations (S^2 FMAs) a flow step at the data sheet's float32
-    rate, whichever is longer."""
+def fb_bound(W: int, N: int, S: int, steps: np.ndarray, nonzero: np.ndarray
+             ) -> tuple[tuple[float, str], tuple[float, str]]:
+    """((ms, what sets it) counting this run's work, the same with the
+    dense flow): logE read once a direction and alpha and beta written
+    (4 x W*N*S float32) through HBM, against the rec flow's float32
+    operations at the data sheet's rate, whichever is longer.  The flow
+    sums a window's overlap entries that are not class 0 (``nonzero``, a
+    window), 2 operations each a flow step (class 0 enters through the
+    row's sum); the dense count is 2 S^2 a flow step, PR 6's bound."""
     tb = 4 * W * N * S * 4 / HBM_BYTES_PER_S * 1e3
-    to = flow_steps * 2 * S * S / FP32_FLOPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+    out = []
+    for per_step in (2 * nonzero.astype(np.float64), np.full(W, 2.0 * S * S)):
+        to = float((steps * per_step).sum()) / FP32_FLOPS_PER_S * 1e3
+        out.append((tb, "bytes") if tb >= to else (to, "operations"))
+    return out[0], out[1]
+
+
+def modeled_wavefronts(lists: torch.Tensor, goff: torch.Tensor, S: int
+                       ) -> tuple[float, float]:
+    """(shared-memory wavefronts of one warp's gather request as a model
+    predicts them, list slots a column over nonzero entries a column), from
+    the layout the kernel reads, not from a profiler: in a warp, lane j
+    reads row[s] for s = slot k of column j, and the model takes a request
+    to cost as many wavefronts as its busiest bank (32 banks of 4 bytes) has
+    distinct addresses.  Each window's own slots count; the pad index S is
+    one address."""
+    W = lists.shape[0]
+    slots = lists.permute(0, 1, 3, 2).reshape(W, -1, S).long()   # [W, L, S]
+    L = slots.shape[1]
+    nwarps = (S + 31) // 32
+    a = torch.nn.functional.pad(slots, (0, nwarps * 32 - S), value=-1)
+    a = a.view(W, L, nwarps, 32)
+    own = (torch.arange(L, device=a.device)[None, :]
+           < goff[:, -1:].long())                               # [W, L]
+    req = torch.arange(W * L * nwarps, device=a.device).view(W, L, nwarps, 1)
+    m = own[:, :, None, None] & (a >= 0)
+    pairs = torch.unique(req.expand_as(a)[m] * (S + 1) + a[m])
+    r, addr = pairs // (S + 1), pairs % (S + 1)
+    busiest = torch.bincount(r * 32 + addr % 32, minlength=W * L * nwarps * 32)
+    busiest = busiest.view(-1, 32).amax(dim=1)
+    n_req = int(own.sum()) * nwarps
+    real = int(((slots < S) & own[:, :, None]).sum())
+    return float(busiest.sum()) / max(n_req, 1), int(own.sum()) * S / max(real, 1)
 
 
 def _fb_diff(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
-def phase_fb(device) -> tuple[tuple, float]:
-    """Phase 13: the kernel against plain on the edge cases, then timed at
-    the genome-scale group; returns ((kernel ms, plain ms, bound ms, bound
-    by, kernel ms in fre mode), the max abs difference from plain)."""
+def fb_group(device, S: int, plain_w: int, split_row: int | None = None) -> dict:
+    """The genome-scale group (FB_GROUP_W windows of FB_GROUP_N nodes at S
+    states, P = 2) timed through the wrapper in rec and fre mode, its layout
+    alone, the bounds and the gather's modeled conflicts; the kernel held against
+    plain on the first ``plain_w`` windows (a window's rows do not depend on
+    the rest of the batch), and plain timed there once; with ``split_row``,
+    that window alone must equal its row of the batch bit for bit."""
     plain = engine_torch_mod._forward_backward_plain
-    worst = 0.0
-    shapes = [(P, S, FB_EDGE_N) for P, S in FB_EDGE_SHAPES] + [(2, 15, 1)]
-    for seed, (P, S, N) in enumerate(shapes):
-        t = fb_inputs(device, FB_EDGE_W, N, S, P, seed, edges=N > 1)
-        for fre in (False, True):
-            got = fb_cuda.forward_backward(*t, fre, P)
-            want = plain(*t, fre, P)
-            torch.cuda.synchronize()
-            err = _fb_diff(got, want)
-            print(f"  fb P={P} S={S} N={N} {'fre' if fre else 'rec'}: kernel vs "
-                  f"plain max_abs_err {err:.3g}")
-            if not err <= FB_ATOL:
-                fail(f"forward_backward disagrees with plain at P={P} S={S} "
-                     f"N={N} fre={fre}")
-            worst = max(worst, err)
-
-    W, N, S = FB_GROUP_W, FB_GROUP_N, FB_GROUP_S
+    W, N = FB_GROUP_W, FB_GROUP_N
     t = fb_inputs(device, W, N, S, 2, 99, edges=False)
-    steps = fb_flow_steps(t[1].cpu().numpy())
+    ov = t[6]
+    nonzero = ((ov >= 1) & (ov <= 2)).sum(dim=(1, 2)).cpu().numpy()
 
     def kernel():
         return fb_cuda.forward_backward(*t, False, 2)
@@ -1640,37 +1716,118 @@ def phase_fb(device) -> tuple[tuple, float]:
     first = kernel()
     kms = time_ms(kernel)
     # the same group in fre mode, whose flow is O(S) a step: the step's
-    # skeleton (barriers, reductions, exp, loads and stores) without the S^2
-    # flow
+    # skeleton (barrier, reduction, exp, loads and stores) without the flow
     fre_ms = time_ms(lambda: fb_cuda.forward_backward(*t, True, 2))
+    layout_ms = time_ms(lambda: fb_cuda.fb_layout(ov, 2))
+    lists, goff, _ = fb_cuda.fb_layout(ov, 2)
+    wavefronts, slot_ratio = modeled_wavefronts(lists, goff, S)
+    words = lists.shape[1]
+    del lists, goff
     again = kernel()
     torch.cuda.synchronize()
     same_runs = all(torch.equal(x, y) for x, y in zip(first, again))
+    del again
+    sub = [x[:plain_w].contiguous() for x in t]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    want = plain(*t, False, 2)
+    want = plain(*sub, False, 2)
     end.record()
     torch.cuda.synchronize()
     pms = start.elapsed_time(end)
-    err = _fb_diff(first, want)
+    err = _fb_diff([f[:plain_w] for f in first], want)
     del want
-    one = fb_cuda.forward_backward(
-        *(x[FB_ROW:FB_ROW + 1].contiguous() for x in t), False, 2)
-    torch.cuda.synchronize()
-    same_row = all(torch.equal(o[0], f[FB_ROW]) for o, f in zip(one, first))
-    bms, by = fb_bound(W, N, S, steps)
-    print(f"  fb at W={W} N={N} S={S} P=2 rec ({steps} flow steps): kernel "
-          f"{kms:.4f} ms (median of {TIMING_RUNS}), plain {pms:.1f} ms (once), "
-          f"bound {bms:.4f} ms ({by}); the same group in fre mode "
-          f"{fre_ms:.4f} ms; kernel vs plain max_abs_err {err:.3g}; "
-          f"two runs bit-identical: {same_runs}; window {FB_ROW} alone "
-          f"bit-identical to row {FB_ROW} of the batch: {same_row}")
+    same_row = True
+    if split_row is not None:
+        one = fb_cuda.forward_backward(
+            *(x[split_row:split_row + 1].contiguous() for x in t), False, 2)
+        torch.cuda.synchronize()
+        same_row = all(torch.equal(o[0], f[split_row]) for o, f in zip(one, first))
+        print(f"  window {split_row} alone bit-identical to row {split_row} of "
+              f"the batch: {same_row}")
+        del one
+    steps = fb_flow_steps(t[1].cpu().numpy())
+    (bms, by), (dms, dby) = fb_bound(W, N, S, steps, nonzero)
+    share = float(nonzero.sum()) / (W * S * S)
+    print(f"  fb at W={W} N={N} S={S} P=2 rec ({int(steps.sum())} flow steps, "
+          f"{share:.4f} of the overlap not class 0): kernel {kms:.4f} ms "
+          f"(median of {TIMING_RUNS}; the layout alone {layout_ms:.4f} ms), "
+          f"plain on {plain_w} windows {pms:.1f} ms (once), bound {bms:.4f} ms "
+          f"({by}; dense count {dms:.4f} ms, {dby}); the same group in fre "
+          f"mode {fre_ms:.4f} ms; {words} list words a column, "
+          f"{wavefronts:.3f} wavefronts a gather request (a model), {slot_ratio:.3f} "
+          f"slots a nonzero entry; kernel vs plain max_abs_err {err:.3g}; "
+          f"two runs bit-identical: {same_runs}")
     if not (err <= FB_ATOL and same_runs and same_row):
-        fail("forward_backward at the genome-scale group disagrees with plain "
-             "or is not deterministic")
-    return (kms, pms, bms, by, fre_ms), max(worst, err)
+        fail(f"forward_backward at the S = {S} group disagrees with plain or "
+             "is not deterministic")
+    return {"ms": kms, "plain_ms": pms, "plain_windows": plain_w,
+            "bound_ms": bms, "bound_by": by, "dense_bound_ms": dms,
+            "dense_bound_by": dby, "fre_ms": fre_ms, "layout_ms": layout_ms,
+            "nonzero_share": share, "modeled_wavefronts": wavefronts,
+            "slot_ratio": slot_ratio, "err": err}
+
+
+def phase_fb(device) -> tuple[dict, dict, float]:
+    """Phase 13: the kernel against plain on the edge cases, then the
+    groups at S = 120 (with the split invariance) and at S = 465; returns
+    (the S = 120 group's numbers, the S = 465 group's, the max abs
+    difference from plain)."""
+    plain = engine_torch_mod._forward_backward_plain
+    worst = 0.0
+    max_states = int(fb_cuda.build().vg_fb_max_states())
+    # (P, S, N, variant, W): with W = FB_EDGE_W the edges of fb_inputs
+    shapes = ([(P, S, FB_EDGE_N, None, FB_EDGE_W) for P, S in FB_EDGE_SHAPES]
+              + [(2, 15, 1, None, FB_EDGE_W)]
+              + [(2, 120, FB_EDGE_N, v, FB_EDGE_W) for v in FB_EDGE_VARIANTS]
+              + [(2, 780, FB_EDGE_N, "dense", FB_EDGE_W),
+                 (2, max_states, FB_MAX_N, None, 1)])
+    for seed, (P, S, N, variant, W) in enumerate(shapes):
+        t = fb_inputs(device, W, N, S, P, seed, edges=N > 1 and W >= 3,
+                      variant=variant)
+        for fre in (False, True):
+            got = fb_cuda.forward_backward(*t, fre, P)
+            want = plain(*t, fre, P)
+            again = fb_cuda.forward_backward(*t, fre, P)
+            torch.cuda.synchronize()
+            err = _fb_diff(got, want)
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            tag = f"P={P} S={S} N={N} W={W}" + (f" {variant}" if variant else "")
+            print(f"  fb {tag} {'fre' if fre else 'rec'}: kernel vs plain "
+                  f"max_abs_err {err:.3g}, two runs bit-identical: {same}")
+            if not (err <= FB_ATOL and same):
+                fail(f"forward_backward disagrees with plain at {tag} fre={fre}")
+            worst = max(worst, err)
+            del got, want, again
+        del t
+        torch.cuda.empty_cache()
+    print(f"  fb: the most states a launch takes is {max_states}")
+
+    # a window alone (lists in registers) against the same window beside a
+    # window of dense overlap (more than 32 words a column: the list path)
+    for S in (FB_GROUP_S, FB_BIG_S):
+        t = fb_inputs(device, FB_MIXED_W, FB_MIXED_N, S, 2, 50 + S, edges=False)
+        t[6][1] = torch.randint(0, 3, (S, S), device=device, dtype=torch.int32)
+        one = fb_cuda.forward_backward(*(x[:1].contiguous() for x in t), False, 2)
+        got = fb_cuda.forward_backward(*t, False, 2)
+        want = plain(*t, False, 2)
+        torch.cuda.synchronize()
+        err = _fb_diff(got, want)
+        same = all(torch.equal(o[0], g[0]) for o, g in zip(one, got))
+        print(f"  fb S={S}: window 0 alone bit-identical to row 0 of a batch "
+              f"beside a dense window: {same}; the batch vs plain max_abs_err "
+              f"{err:.3g}")
+        if not (err <= FB_ATOL and same):
+            fail(f"forward_backward at S = {S} changes beside a dense window")
+        worst = max(worst, err)
+        del t, one, got, want
+
+    g120 = fb_group(device, FB_GROUP_S, FB_GROUP_W, split_row=FB_ROW)
+    torch.cuda.empty_cache()
+    g465 = fb_group(device, FB_BIG_S, FB_BIG_PLAIN_W)
+    torch.cuda.empty_cache()
+    return g120, g465, max(worst, g120["err"], g465["err"])
 
 
 # ---------------------------------------------------------------- phase 14
@@ -1903,7 +2060,7 @@ def main() -> int:
 
         print("== 13. the forward/backward kernel against plain torch "
               f"(tolerance: atol {FB_ATOL:g} on alpha/beta), then timed")
-        fb_times, fb_err = phase_fb(device)
+        fb120, fb465, fb_err = phase_fb(device)
 
         print(f"== 14. main path: genotype of the {BIG_MB} Mb graph at S = 120")
         main_launches.update(phase_big_genotype(device, work, big_vgt,
@@ -1949,13 +2106,20 @@ def main() -> int:
         "batch_plain_ms": bpms, "batch_bound_ms": bbms,
         "batch_old_path_ms": boms, "on_main_path": main_launches["cbf_add_codes"] > 0,
     })
-    kms, pms, bms, by, fre_ms = fb_times
     kernels.append({
         "name": "forward_backward", "route": "cuda", "source": source.format("fb"),
         "replaces": "varigraph_tpu/genotype/engine_jax.py:192",
         "launches": main_launches["forward_backward"], "max_abs_err": fb_err,
-        "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None, "fre_ms": fre_ms,
+        "ms": fb120["ms"], "plain_ms": fb120["plain_ms"],
+        "bound_ms": fb120["bound_ms"], "bound_by": fb120["bound_by"],
+        "library_ms": None, "dense_bound_ms": fb120["dense_bound_ms"],
+        "fre_ms": fb120["fre_ms"], "layout_ms": fb120["layout_ms"],
+        "nonzero_share": fb120["nonzero_share"],
+        "modeled_wavefronts": fb120["modeled_wavefronts"],
+        "s465": {k: fb465[k] for k in (
+            "ms", "plain_ms", "plain_windows", "bound_ms", "bound_by",
+            "dense_bound_ms", "fre_ms", "layout_ms", "nonzero_share",
+            "modeled_wavefronts")},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,36 +27,65 @@
 // Padded states (valid false) come out 0 and enter neither tot nor the
 // uniform row.
 //
+// The flow from the nonzero overlap classes.  Class-0 entries all weigh t[0],
+// so with R = sum_s row[s] and acc_c[j] = sum over s with ov[s, j] = c of
+// row[s]:  flow[j] = t[0] * R + sum_{c >= 1} (t[c] - t[0]) * acc_c[j].  Every
+// t[c] - t[0] is >= 0 (norec >= rec), so the form does not cancel.  The
+// engine's states are pairs of haplotypes and most of their overlap is class
+// 0 (at S = 120, 3,270 of 14,400 entries are not), so a state sums only its
+// column's nonzero entries.  The wrapper (ops/fb_cuda.fb_layout) lists them
+// per column, grouped by class, each group padded to the window's longest
+// (the pad index S reads a zero); a column that holds a class above P lists
+// its class-0 entries instead of taking t[0] * R, and leaves the classes
+// above P out, so they weigh exactly 0.  A list word holds two uint16 state
+// indices (slot-major, so a warp's words are consecutive).  Every path sums
+// a column word by word in list order, acc = (row[s0] + row[s1]) / tot and
+// flow += (t[c] - t[0]) * acc, with no contraction, so the path a launch
+// takes does not change a bit of the result.
+//
 // Layout.  Grid (W, 2): one CTA for each window and direction, so the
-// forward and the backward chains of a window run side by side.  The node
-// loop runs inside the CTA; thread tid owns the states j = tid (mod
-// blockDim), blockDim = S rounded up to a warp, at most 1024, so any S up to
-// the shared-memory limit works.  The row, the step's raw values, the
-// uniform row and the fre weights sit in shared memory, as does the uint8
-// overlap matrix [S, S] while it fits beside them (S <= ~469 on an H100);
-// above that the matrix is read from device memory (L1/L2).  kind, lr and lnr
-// are staged kTile steps at a time; each thread prefetches its first
-// state's logE one step ahead.  Pad and reset steps take no barrier.
+// forward and the backward chains of a window run side by side; the node
+// loop runs inside the CTA.  The row is kept unnormalized in a double
+// buffer, so R of the normalized row is tot / tot = 1 and the gather of step
+// i + 1 scales by 1 / tot; the write of step i and the reads of step i + 1
+// need no second barrier.  The max of logE of the next step does not depend
+// on the chain: it is formed in step i and reduced with step i's tot, so a
+// real step takes one barrier (two after a pad or reset step).
+//   fb_kernel (S <= 1024): thread j owns state j and keeps its per-step
+//     values in registers; logE comes into a shared ring 8 steps at a time
+//     with cp.async, each thread copying and reading only its own state, so
+//     the ring needs no barrier.  Up to S = 512 and 32 words a column, a
+//     thread keeps its column's words in registers as byte offsets, and the
+//     weight of every word for every step of a 256-step tile is computed when
+//     the tile is staged: a step's gather is then 2 shared loads a word and
+//     one 16-byte weight load for 4 words, with no branch (fb_kernel<16 or
+//     32>).  Else (fb_kernel<0>) the lists sit in shared memory while they
+//     fit beside the per-state arrays, or are read from device memory, a
+//     class at a time with class weights published a step ahead.
+//   fb_wide_kernel (S > 1024): thread tid owns the states j = tid (mod
+//     1024) and keeps nothing a state in registers: the raw row is the
+//     shared row buffer, logE is read from device memory where it is used.
+//     12 shared bytes a state (two rows and the uniform row), so a launch
+//     takes up to ~18,800 states on an H100 (vg_fb_max_states).
 //
 // Determinism.  The max and the sums are block reductions in a fixed order
-// (a warp butterfly, then the warps' partials in warp order), with no
-// atomics, and flow[j] is summed by one thread in a fixed order.  A window's
-// rows depend only on its own inputs and S, bit for bit, whatever W is and
-// wherever the window sits in the batch.  They agree with the plain version
-// (which sums per overlap class through a matrix product) to float32
-// rounding, not bit for bit.  expf, IEEE division, no fast math.
+// (a warp butterfly, then the warps' partials in warp order, or above 8
+// warps a second butterfly), with no atomics, and flow[j] is summed by one
+// thread in a fixed order.  A window's rows depend only on its own inputs
+// and S, bit for bit, whatever W is and wherever the window sits in the
+// batch.  They agree with the plain version (which sums per overlap class
+// through a matrix product) to float32 rounding, not bit for bit.  expf,
+// IEEE division, no fast math.
 //
 // What bounds it on an H100.  Each direction reads logE once and writes one
-// [N, S] row block: 4 * W*N*S*4 bytes in all; the rec flow is S^2 FMAs a
-// step, 2 * W*N*2S^2 float32 operations in all, which bound it at S = 120
-// (chip_smoke.py computes both).  In practice the chain is serial: a step
-// costs two barriers, two block reductions and S FMAs a thread (four
-// accumulators), and every CTA of a 256-window group is resident at once.
-// The flow's inner loop makes three shared-memory loads for each FMA (the
-// row, the overlap byte, the class weight), and an SM issues one such
-// warp-wide load a cycle: at S = 120 that, not the FMAs, sets the pace.  On
-// an H100 80GB HBM3 (700 W) the group W = 256, N = 8,192 takes ~30 ms in
-// rec mode and ~8.3 ms in fre mode (no S^2 flow) against a 1.8 ms bound.
+// [N, S] row block: 4 * W*N*S*4 bytes in all; the rec flow is 2 operations an
+// overlap entry that is not class 0, a step (chip_smoke.py computes both:
+// bytes bound it at S = 120 and 465).  In practice the chain is serial and a
+// step's instructions pace it: at S = 120 all 512 CTAs of a 256-window group
+// are resident (4 an SM) and the SM issues ~16 warps' steps at once; a step
+// is a barrier, two 5-level shuffle reductions, an exp, a reciprocal and the
+// gather.  At S = 465 two CTAs share an SM and the gathers' shared loads
+// take the larger part of a step.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,15 +93,29 @@
 
 namespace {
 
-constexpr int kTile = 256;       // steps of kind/lr/lnr staged at once
-constexpr int kClasses = 256;    // t[] covers every uint8 overlap value
+constexpr int kTile = 256;        // steps of kind/lr/lnr staged at once
+constexpr int kClasses = 256;     // weights cover every uint8 overlap class
 constexpr int kMaxThreads = 1024;
+constexpr int kChunk = 8;         // steps of logE a cp.async group brings
+constexpr int kRegWords = 32;     // list words a thread may hold in registers
+constexpr int kRegThreads = 512;  // the most threads of a CTA that does
+constexpr long kMaxStates = 32767;  // state indices are int16 in the lists
 
-// shared bytes before the per-state arrays: t, three reduction buffers of
-// 32 floats, the staged kind/lr/lnr
-constexpr int kFixedBytes = 4 * kClasses + 3 * 32 * 4 + 3 * kTile * 4;
-// per-state shared floats: the row, raw/logE, uniform, fre weight
-constexpr int kPerState = 4 * 4;
+// shared bytes both kernels carve first: the two steps' class weights (and
+// t[0]), five reduction buffers of 32 floats, the class offsets, the staged
+// kind/lr/lnr (one step past the tile), the zero pads of the two rows and of
+// the uniform row
+constexpr int kCommonBytes =
+    4 * (2 * (kClasses + 1) + 5 * 32 + (kClasses + 1) + 3 * (kTile + 1) + 3);
+// per-state shared bytes of both: two rows and the uniform row
+constexpr int kRowBytes = 4 * 3;
+// fb_kernel's more: its logE ring of two chunks
+constexpr int kRingBytes = 4 * 2 * kChunk;
+// the register-list kernel's tile of weights (a weight for every word and
+// t[0], for every step of the tile) and the words' classes
+constexpr int tile_weight_bytes(int words) {
+  return 4 * ((kTile + 1) * (words + 1) + kRegWords);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -84,27 +127,397 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <bool kOvShared>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// t[c] = exp(c * lnr + (P - c) * lr), a factor of 0 giving 0; the products
+// are rounded apart (no contraction), so every call site gives the same bits
+__device__ __forceinline__ float class_weight(int c, int P, float lr, float lnr) {
+  const float a = c == 0 ? 0.f : __fmul_rn(static_cast<float>(c), lnr);
+  const float b = P - c == 0 ? 0.f : __fmul_rn(static_cast<float>(P - c), lr);
+  return expf(a + b);
+}
+
+// one list word into the flow: acc = (row[s0] + row[s1]) / tot, f += w * acc
+// (and all += acc), in this order in every path
+__device__ __forceinline__ void add_word(float r0, float r1, float w, float inv,
+                                         float& f, float& all) {
+  const float acc = __fmul_rn(r0 + r1, inv);
+  all += acc;
+  f = fmaf(w, acc, f);
+}
+
+// sum_k w_k * (row[s_k0] + row[s_k1]) * inv over a register list's words
+// (into f), and with kAll the unweighted sum too (into all).  The words past
+// the column's own carry weight 0 and read 0, so they leave f and all as
+// they are, and the sums equal gather_list's.
+template <int kWords, bool kAll>
+__device__ __forceinline__ void gather_words(const char* sb, const float4* ww,
+                                             const uint32_t* off, float inv,
+                                             float& f, float& all) {
+  float none = 0.f;
+#pragma unroll
+  for (int k4 = 0; k4 < kWords / 4; ++k4) {
+    const float4 w4 = ww[k4];
+    const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = 4 * k4 + u;
+      add_word(*reinterpret_cast<const float*>(sb + off[2 * k]),
+               *reinterpret_cast<const float*>(sb + off[2 * k + 1]), wk[u], inv,
+               f, kAll ? all : none);
+    }
+  }
+}
+
+// the flow sums of column j from its list (p: the column's first word,
+// words S apart), class by class with the class weights d[c]
+__device__ __forceinline__ void gather_list(const uint32_t* p, int S,
+                                            const int* goff, int P,
+                                            const float* src, const float* d,
+                                            float inv, float& f, float& all) {
+  for (int c = 0; c <= P; ++c) {
+    const int k1 = goff[c + 1] >> 1;
+    const float dc = d[c];
+    for (int k = goff[c] >> 1; k < k1; ++k) {
+      const uint32_t v = p[static_cast<size_t>(k) * S];
+      add_word(src[v & 0xffffu], src[v >> 16], dc, inv, f, all);
+    }
+  }
+}
+
+// the class weights of one step into d: d[c] = t[c] - t[0], t[0] last
+__device__ __forceinline__ void publish(float* d, int P, float lr, float lnr,
+                                        int tid, int nt) {
+  for (int c = tid; c <= P; c += nt) {
+    const float t0 = class_weight(0, P, lr, lnr);
+    d[c] = class_weight(c, P, lr, lnr) - t0;
+    if (c == 0) d[kClasses] = t0;
+  }
+}
+
+// the shared arrays both kernels use, carved from p
+struct Common {
+  float* wbuf;     // [2][kClasses + 1], the list path's class weights
+  float* red_tot;  // [2][32]
+  float* red_mx;   // [2][32]
+  float* red_x;    // [32], the max after a pad or reset step
+  int* goff;       // [kClasses + 1]
+  int* kind;       // [kTile + 1]
+  float* lr;       // [kTile + 1]
+  float* lnr;      // [kTile + 1]
+  float* rows;     // [2][S + 1], raw rows
+  float* uni;      // [S + 1]
+  float* end;      // what follows
+};
+
+__device__ __forceinline__ Common carve(float* p, int S) {
+  Common s;
+  s.wbuf = p;
+  s.red_tot = s.wbuf + 2 * (kClasses + 1);
+  s.red_mx = s.red_tot + 2 * 32;
+  s.red_x = s.red_mx + 2 * 32;
+  s.goff = reinterpret_cast<int*>(s.red_x + 32);
+  s.kind = s.goff + kClasses + 1;
+  s.lr = reinterpret_cast<float*>(s.kind + kTile + 1);
+  s.lnr = s.lr + kTile + 1;
+  s.rows = s.lnr + kTile + 1;
+  s.uni = s.rows + 2 * (S + 1);
+  s.end = s.uni + S + 1;
+  return s;
+}
+
+// kind/lr/lnr of steps n .. n + kTile (node order of the direction)
+__device__ __forceinline__ void stage_tile(const Common& s, const int32_t* kind_w,
+                                           const float* lr_w, const float* lnr_w,
+                                           int n, int N, bool back, int tid,
+                                           int nt) {
+  for (int k = tid; k <= kTile && n + k < N; k += nt) {
+    const int ii = back ? N - 1 - (n + k) : n + k;
+    s.kind[k] = kind_w[ii];
+    s.lr[k] = lr_w[ii];
+    s.lnr[k] = lnr_w[ii];
+  }
+}
+
+// the block's sum of tsum and max of nm into every thread (one barrier)
+__device__ __forceinline__ void reduce_step(const Common& s, int cur, float tsum,
+                                           float nm, int lane, int warp,
+                                           int nwarps, float& tot, float& nmx) {
+  tsum = warp_sum(tsum);
+  nm = warp_max(nm);
+  if (lane == 0) {
+    s.red_tot[cur * 32 + warp] = tsum;
+    s.red_mx[cur * 32 + warp] = nm;
+  }
+  __syncthreads();
+  if (nwarps <= 8) {  // the warps' partials in warp order
+    tot = s.red_tot[cur * 32];
+    nmx = s.red_mx[cur * 32];
+    for (int k = 1; k < nwarps; ++k) {
+      tot += s.red_tot[cur * 32 + k];
+      nmx = fmaxf(nmx, s.red_mx[cur * 32 + k]);
+    }
+  } else {  // lane k takes warp k's; a butterfly gives every lane the same
+    tot = warp_sum(lane < nwarps ? s.red_tot[cur * 32 + lane] : 0.f);
+    nmx = warp_max(lane < nwarps ? s.red_mx[cur * 32 + lane] : -INFINITY);
+  }
+}
+
+// the block's max of mm into every thread (one barrier)
+__device__ __forceinline__ float reduce_max(const Common& s, float mm, int lane,
+                                            int warp, int nwarps) {
+  mm = warp_max(mm);
+  if (lane == 0) s.red_x[warp] = mm;
+  __syncthreads();
+  float mx = s.red_x[0];
+  for (int k = 1; k < nwarps; ++k) mx = fmaxf(mx, s.red_x[k]);
+  return mx;
+}
+
+// One state a thread (j = tid, S <= 1024).  kWords > 0: the lists sit in
+// registers (at most kWords words a column, at most kRegThreads threads) and
+// every word has its own weight; all kWords words are summed, with no
+// branch, so that the gathers of a step issue back to back (a pad word reads
+// 0 and weighs 0).  kWords == 0: they are read from shared or device memory
+// (``lists_shared``) a class at a time.  The 16-word kernel may take up to
+// 128 registers (4 CTAs of 128 threads an SM at S = 120); the 32-word one at
+// most 64, so that 2 CTAs of 480 threads share an SM at S = 465.
+template <int kWords>
+__global__ void __launch_bounds__(kWords > 0 ? kRegThreads : kMaxThreads,
+                                  kWords == kRegWords ? 2 : 1)
 fb_kernel(const float* __restrict__ logE, const int32_t* __restrict__ kind,
           const float* __restrict__ lrf, const float* __restrict__ lnrf,
           const float* __restrict__ lrb, const float* __restrict__ lnrb,
-          const uint8_t* __restrict__ ov, const float* __restrict__ log_w,
+          const uint32_t* __restrict__ lists, const int32_t* __restrict__ goff,
+          const uint8_t* __restrict__ full, const float* __restrict__ log_w,
           const uint8_t* __restrict__ smask, float* __restrict__ alpha_out,
-          float* __restrict__ beta_out, int N, int S, int P, int fre) {
+          float* __restrict__ beta_out, int N, int S, int P, int pairs,
+          int lists_shared, int fre) {
+  constexpr bool kRegs = kWords > 0;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* t_s = reinterpret_cast<float*>(smem);
-  float* red_max = t_s + kClasses;
-  float* red_a = red_max + 32;
-  float* red_tot = red_a + 32;
-  int* kind_s = reinterpret_cast<int*>(red_tot + 32);
-  float* lr_s = reinterpret_cast<float*>(kind_s + kTile);
-  float* lnr_s = lr_s + kTile;
-  float* row_s = lnr_s + kTile;
-  float* work_s = row_s + S;
-  float* uni_s = work_s + S;
-  float* ew_s = uni_s + S;
-  uint8_t* ov_s = reinterpret_cast<uint8_t*>(ew_s + S);
+  float* wtile = reinterpret_cast<float*>(smem);  // [kTile + 1][kWords]
+  float* wt0 = wtile + (kTile + 1) * kWords;      // [kTile + 1] (kRegs)
+  int* wcls_s = reinterpret_cast<int*>(wt0 + (kRegs ? kTile + 1 : 0));
+  const Common sh = carve(reinterpret_cast<float*>(wcls_s + (kRegs ? kRegWords : 0)), S);
+  float* ring = sh.end;                           // [2 * kChunk][S]
+  uint32_t* lists_s = reinterpret_cast<uint32_t*>(ring + 2 * kChunk * S);
+
+  const int w = blockIdx.x;
+  const bool back = blockIdx.y == 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const bool in = tid < S;
+  const size_t ws = static_cast<size_t>(w) * S;
+  const float* le_w = logE + static_cast<size_t>(w) * N * S;
+  float* out = (back ? beta_out : alpha_out) + static_cast<size_t>(w) * N * S;
+  const int32_t* kind_w = kind + static_cast<size_t>(w) * N;
+  const float* lr_w = (back ? lrb : lrf) + static_cast<size_t>(w) * N;
+  const float* lnr_w = (back ? lnrb : lnrf) + static_cast<size_t>(w) * N;
+  const uint32_t* lists_w = lists + static_cast<size_t>(w) * pairs * S;
+  const uint32_t* lst = lists_shared ? lists_s : lists_w;
+  auto node = [&](int n) { return back ? N - 1 - n : n; };
+  // logE of chunk c (steps c*kChunk ..) into its half of the ring, one group
+  const long row_step = back ? -static_cast<long>(S) : S;
+  auto fetch = [&](int c) {
+    float* dst = ring + (c & 1) * kChunk * S + tid;
+    const int st0 = c * kChunk;
+    const int steps = N - st0 < kChunk ? N - st0 : kChunk;
+    const float* src = le_w + static_cast<long>(node(st0)) * S + tid;
+    for (int k = 0; in && k < steps; ++k, src += row_step, dst += S)
+      cp_async4(dst, src);
+    cp_async_commit();
+  };
+  fetch(0);
+
+  // the state's constants: whether it is valid (its uniform value > 0), its
+  // fre weight, whether its column lists class 0
+  const bool v = in && smask[ws + tid] != 0;
+  const float ewj = expf(v ? log_w[ws + tid] : 0.f);
+  const bool fj = in && !fre && full[ws + tid] != 0;
+  if (in) {
+    sh.rows[tid] = 0.f;
+    sh.rows[S + 1 + tid] = 0.f;
+  }
+  if (tid == 0) {
+    sh.rows[S] = 0.f;
+    sh.rows[2 * S + 1] = 0.f;
+    sh.uni[S] = 0.f;
+  }
+  if (!fre) {
+    for (int c = tid; c <= P + 1; c += nt) sh.goff[c] = goff[static_cast<size_t>(w) * (P + 2) + c];
+    if (!kRegs && lists_shared) {
+      for (size_t q = tid; q < static_cast<size_t>(pairs) * S; q += nt) lists_s[q] = lists_w[q];
+    }
+  }
+  const float cnt = warp_sum(v ? 1.f : 0.f);
+  if (lane == 0) sh.red_tot[32 + warp] = cnt;
+  __syncthreads();
+  float nvalid = 0.f;
+  for (int q = 0; q < nwarps; ++q) nvalid += sh.red_tot[32 + q];
+  const float uj = v ? 1.f / nvalid : 0.f;
+  if (in) sh.uni[tid] = uj;
+  const float us = warp_sum(uj);
+  if (lane == 0) sh.red_mx[32 + warp] = us;
+  // goff is visible after this barrier; whether any column of the window
+  // lists class 0 (then the gather also sums the listed entries unweighted)
+  const bool any_full = __syncthreads_or(fj) != 0;
+  float usum = 0.f;  // the uniform row's sum, its R
+  for (int q = 0; q < nwarps; ++q) usum += sh.red_mx[32 + q];
+  // (the next writes of red_tot[1], red_mx[1] come after the tile's barriers)
+  const int nwords = fre ? 0 : sh.goff[P + 1] >> 1;
+  // (kRegs) the byte offsets of the two states of each list word
+  uint32_t off[kRegs ? 2 * kWords : 1];
+  if (kRegs) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const uint32_t x = k < nwords && in
+                             ? lists_w[static_cast<size_t>(k) * S + tid]
+                             : static_cast<uint32_t>(S) | (static_cast<uint32_t>(S) << 16);
+      off[2 * k] = (x & 0xffffu) * 4u;
+      off[2 * k + 1] = (x >> 16) * 4u;
+    }
+    // the class of each word (-1: a pad word, weight 0)
+    if (tid < kWords) {
+      int c = -1;
+      for (int q = 0; q <= P && tid < nwords; ++q)
+        if (sh.goff[q] <= 2 * tid && 2 * tid < sh.goff[q + 1]) c = q;
+      wcls_s[tid] = c;
+    }
+  }
+  cp_async_wait_all();  // chunk 0
+
+  bool fresh = true;   // the same in every thread of the block
+  bool ahead = false;  // this step's max and weights were formed last step
+  int r = 0;           // real steps taken
+  int knd_next = 0;
+  float mx = -INFINITY;
+  bool ok = false;     // the last real step's tot > 0
+  float inv = 1.f;     // and then 1 / tot
+  float le = -INFINITY;  // this step's logE, read a step ahead
+  bool le_ready = false;
+  float* out_next = out + static_cast<long>(node(0)) * S;
+  for (int n = 0; n < N; ++n) {
+    float* out_i = out_next;
+    out_next += row_step;
+    const int q = n % kTile;
+    if (q == 0) {
+      __syncthreads();  // every thread is done with the previous tile
+      stage_tile(sh, kind_w, lr_w, lnr_w, n, N, back, tid, nt);
+      __syncthreads();
+      if constexpr (kRegs) {  // the tile's word weights, off the steps' path
+        for (int e = tid; !fre && e < (kTile + 1) * kWords; e += nt) {
+          const int k = e % kWords, rr = e / kWords;
+          if (n + rr >= N) break;
+          const float t0 = class_weight(0, P, sh.lr[rr], sh.lnr[rr]);
+          const int c = wcls_s[k];
+          wtile[e] = c < 0 ? 0.f : class_weight(c, P, sh.lr[rr], sh.lnr[rr]) - t0;
+          if (k == 0) wt0[rr] = t0;
+        }
+        __syncthreads();
+      }
+      knd_next = sh.kind[0];
+    }
+    const int knd = knd_next;
+    const bool has_next = n + 1 < N;
+    if (has_next) knd_next = sh.kind[q + 1];
+    // logE: chunk c + 1 is fetched as chunk c begins and waited for at
+    // chunk c's last step, whose next-step max reads it
+    if (n % kChunk == 0) fetch(n / kChunk + 1);
+    if (n % kChunk == kChunk - 1) cp_async_wait_all();
+    if (!le_ready) le = in ? ring[(n % (2 * kChunk)) * S + tid] : -INFINITY;
+    le_ready = false;
+    if (knd != 1) {
+      if (in) out_i[tid] = 0.f;
+      if (knd == 2) fresh = true;
+      ahead = false;
+      continue;
+    }
+    const int cur = r & 1;
+    if (!ahead) {  // after a pad or reset step: this step's max and weights
+      if (!fre && !kRegs) publish(sh.wbuf + cur * (kClasses + 1), P, sh.lr[q], sh.lnr[q], tid, nt);
+      mx = reduce_max(sh, uj > 0.f ? le : -INFINITY, lane, warp, nwarps);
+    }
+    // the next step's logE, max and weights, published with this step's tot
+    float lx = -INFINITY;
+    if (has_next) {
+      if (in) lx = ring[((n + 1) % (2 * kChunk)) * S + tid];
+      if (!fre && !kRegs)
+        publish(sh.wbuf + (cur ^ 1) * (kClasses + 1), P, sh.lr[q + 1], sh.lnr[q + 1], tid, nt);
+    }
+
+    const float* src = ok ? sh.rows + (cur ^ 1) * (S + 1) : sh.uni;
+    const float rn = ok ? 1.f : usum;  // R of the normalized row
+    const float* wb = sh.wbuf + cur * (kClasses + 1);
+    const float t0 = kRegs ? wt0[q] : wb[kClasses];
+    const float e = uj > 0.f ? expf(le - mx) : 0.f;
+    float x;
+    if (fresh) {
+      x = e;
+    } else if (fre) {
+      x = (rn * ewj) * e;
+    } else {
+      // each class sum is scaled to the normalized row before it meets a
+      // weight, which may be far below 1 (rec^P): so may the raw row
+      float f = 0.f, all = 0.f;
+      if constexpr (kRegs) {
+        const char* sb = reinterpret_cast<const char*>(src);
+        const float4* ww = reinterpret_cast<const float4*>(wtile + q * kWords);
+        if (any_full)
+          gather_words<kWords, true>(sb, ww, off, inv, f, all);
+        else
+          gather_words<kWords, false>(sb, ww, off, inv, f, all);
+      } else if (in) {
+        gather_list(lst + tid, S, sh.goff, P, src, wb, inv, f, all);
+      }
+      x = __fmul_rn(fmaf(t0, fj ? all : rn, f), e);
+    }
+    if (in) sh.rows[cur * (S + 1) + tid] = x;
+    float tot, nmx;
+    reduce_step(sh, cur, x, uj > 0.f ? lx : -INFINITY, lane, warp, nwarps, tot, nmx);
+    mx = nmx;
+    ahead = has_next;
+    if (has_next) {
+      le = lx;
+      le_ready = true;
+    }
+    ok = tot > 0.f;
+    inv = ok ? 1.f / tot : 1.f;
+    if (in) out_i[tid] = ok ? x * inv : uj;
+    fresh = false;
+    ++r;
+  }
+  cp_async_wait_all();
+}
+
+// Any number of states a thread (j = tid + m * blockDim, S > 1024): the raw
+// row is kept only in the shared row buffer, logE, the fre weights and the
+// columns' full flags are read from device memory where they are used, and
+// the lists from shared memory while they fit, else from device memory.  The
+// same steps as fb_kernel<0>, in the same order.
+__global__ void __launch_bounds__(kMaxThreads)
+fb_wide_kernel(const float* __restrict__ logE, const int32_t* __restrict__ kind,
+               const float* __restrict__ lrf, const float* __restrict__ lnrf,
+               const float* __restrict__ lrb, const float* __restrict__ lnrb,
+               const uint32_t* __restrict__ lists, const int32_t* __restrict__ goff,
+               const uint8_t* __restrict__ full, const float* __restrict__ log_w,
+               const uint8_t* __restrict__ smask, float* __restrict__ alpha_out,
+               float* __restrict__ beta_out, int N, int S, int P, int pairs,
+               int lists_shared, int fre) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Common sh = carve(reinterpret_cast<float*>(smem), S);
+  uint32_t* lists_s = reinterpret_cast<uint32_t*>(sh.end);
 
   const int w = blockIdx.x;
   const bool back = blockIdx.y == 1;
@@ -116,121 +529,118 @@ fb_kernel(const float* __restrict__ logE, const int32_t* __restrict__ kind,
   const int32_t* kind_w = kind + static_cast<size_t>(w) * N;
   const float* lr_w = (back ? lrb : lrf) + static_cast<size_t>(w) * N;
   const float* lnr_w = (back ? lnrb : lnrf) + static_cast<size_t>(w) * N;
-  const uint8_t* ov_w = ov + ws * S;
-  const uint8_t* ovp = kOvShared ? ov_s : ov_w;
+  const uint32_t* lists_w = lists + static_cast<size_t>(w) * pairs * S;
+  const uint32_t* lst = lists_shared ? lists_s : lists_w;
+  auto row_of = [&](int n) { return static_cast<long>(back ? N - 1 - n : n) * S; };
 
-  for (int c = tid; c < kClasses; c += nt) t_s[c] = 0.f;
   float cnt = 0.f;
   for (int j = tid; j < S; j += nt) {
-    const bool v = smask[ws + j] != 0;
-    cnt += v ? 1.f : 0.f;
-    row_s[j] = 0.f;
-    ew_s[j] = expf(v ? log_w[ws + j] : 0.f);
+    cnt += smask[ws + j] != 0 ? 1.f : 0.f;
+    sh.rows[j] = 0.f;
+    sh.rows[S + 1 + j] = 0.f;
   }
-  if (kOvShared) {
-    for (int q = tid; q < S * S; q += nt) ov_s[q] = ov_w[q];
+  if (tid == 0) {
+    sh.rows[S] = 0.f;
+    sh.rows[2 * S + 1] = 0.f;
+    sh.uni[S] = 0.f;
+  }
+  if (!fre) {
+    for (int c = tid; c <= P + 1; c += nt) sh.goff[c] = goff[static_cast<size_t>(w) * (P + 2) + c];
+    if (lists_shared) {
+      for (size_t q = tid; q < static_cast<size_t>(pairs) * S; q += nt) lists_s[q] = lists_w[q];
+    }
   }
   cnt = warp_sum(cnt);
-  if (lane == 0) red_tot[warp] = cnt;
+  if (lane == 0) sh.red_tot[32 + warp] = cnt;
   __syncthreads();
   float nvalid = 0.f;
-  for (int q = 0; q < nwarps; ++q) nvalid += red_tot[q];
-  for (int j = tid; j < S; j += nt)
-    uni_s[j] = smask[ws + j] != 0 ? 1.f / nvalid : 0.f;
+  for (int q = 0; q < nwarps; ++q) nvalid += sh.red_tot[32 + q];
+  float us = 0.f;
+  for (int j = tid; j < S; j += nt) {
+    const float u = smask[ws + j] != 0 ? 1.f / nvalid : 0.f;
+    sh.uni[j] = u;
+    us += u;
+  }
+  us = warp_sum(us);
+  if (lane == 0) sh.red_mx[32 + warp] = us;
+  __syncthreads();  // goff, the lists and the uniform row are visible
+  float usum = 0.f;
+  for (int q = 0; q < nwarps; ++q) usum += sh.red_mx[32 + q];
 
-  bool fresh = true;  // the same in every thread of the block
-  const int dir = back ? -1 : 1;
-  float pf = tid < S ? le_w[static_cast<size_t>(back ? N - 1 : 0) * S + tid] : 0.f;
+  bool fresh = true;
+  bool ahead = false;
+  int r = 0;
+  int knd_next = 0;
+  float mx = -INFINITY;
+  bool ok = false;
+  float inv = 1.f;
   for (int n = 0; n < N; ++n) {
-    const int i = back ? N - 1 - n : n;
+    float* out_i = out + row_of(n);
+    const float* le_n = le_w + row_of(n);
     const int q = n % kTile;
     if (q == 0) {
-      __syncthreads();  // every thread is done with the previous tile
-      for (int r = tid; r < kTile && n + r < N; r += nt) {
-        const int ii = back ? N - 1 - (n + r) : n + r;
-        kind_s[r] = kind_w[ii];
-        lr_s[r] = lr_w[ii];
-        lnr_s[r] = lnr_w[ii];
-      }
       __syncthreads();
+      stage_tile(sh, kind_w, lr_w, lnr_w, n, N, back, tid, nt);
+      __syncthreads();
+      knd_next = sh.kind[0];
     }
-    const int knd = kind_s[q];
-    const float le0 = pf;
-    if (n + 1 < N && tid < S) pf = le_w[static_cast<size_t>(i + dir) * S + tid];
-    float* out_i = out + static_cast<size_t>(i) * S;
+    const int knd = knd_next;
+    const bool has_next = n + 1 < N;
+    if (has_next) knd_next = sh.kind[q + 1];
     if (knd != 1) {
       for (int j = tid; j < S; j += nt) out_i[j] = 0.f;
       if (knd == 2) fresh = true;
+      ahead = false;
       continue;
     }
-
-    if (!fre && !fresh) {
-      const float lr = lr_s[q], lnr = lnr_s[q];
-      for (int c = tid; c <= P; c += nt) {
-        const float a = c == 0 ? 0.f : static_cast<float>(c) * lnr;
-        const float b = P - c == 0 ? 0.f : static_cast<float>(P - c) * lr;
-        t_s[c] = expf(a + b);
-      }
+    const int cur = r & 1;
+    if (!ahead) {
+      if (!fre) publish(sh.wbuf + cur * (kClasses + 1), P, sh.lr[q], sh.lnr[q], tid, nt);
+      float mm = -INFINITY;
+      for (int j = tid; j < S; j += nt)
+        if (sh.uni[j] > 0.f) mm = fmaxf(mm, le_n[j]);
+      mx = reduce_max(sh, mm, lane, warp, nwarps);
     }
-    // the max of logE over the valid states; the row's sum (fre)
-    float mx = -INFINITY, asum = 0.f;
-    for (int j = tid; j < S; j += nt) {
-      const float le = j == tid ? le0 : le_w[static_cast<size_t>(i) * S + j];
-      work_s[j] = le;
-      if (uni_s[j] > 0.f) mx = fmaxf(mx, le);
-      asum += row_s[j];
-    }
-    mx = warp_max(mx);
-    asum = warp_sum(asum);
-    if (lane == 0) {
-      red_max[warp] = mx;
-      red_a[warp] = asum;
-    }
-    __syncthreads();
-    mx = red_max[0];
-    asum = red_a[0];
-    for (int r = 1; r < nwarps; ++r) {
-      mx = fmaxf(mx, red_max[r]);
-      asum += red_a[r];
+    float nm = -INFINITY;
+    if (has_next) {
+      const float* le_x = le_w + row_of(n + 1);
+      for (int j = tid; j < S; j += nt)
+        if (sh.uni[j] > 0.f) nm = fmaxf(nm, le_x[j]);
+      if (!fre)
+        publish(sh.wbuf + (cur ^ 1) * (kClasses + 1), P, sh.lr[q + 1], sh.lnr[q + 1], tid, nt);
     }
 
-    float tot = 0.f;
+    const float* src = ok ? sh.rows + (cur ^ 1) * (S + 1) : sh.uni;
+    const float rn = ok ? 1.f : usum;
+    const float* wb = sh.wbuf + cur * (kClasses + 1);
+    const float t0 = wb[kClasses];
+    float* dst = sh.rows + cur * (S + 1);
+    float tsum = 0.f;
     for (int j = tid; j < S; j += nt) {
-      const float e = uni_s[j] > 0.f ? expf(work_s[j] - mx) : 0.f;
-      float raw;
+      const float uj = sh.uni[j];
+      const float e = uj > 0.f ? expf(le_n[j] - mx) : 0.f;
+      float x;
       if (fresh) {
-        raw = e;
+        x = e;
       } else if (fre) {
-        raw = (asum * ew_s[j]) * e;
+        x = (rn * expf(uj > 0.f ? log_w[ws + j] : 0.f)) * e;
       } else {
-        const uint8_t* col = ovp + j;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        int s = 0;
-        for (; s + 4 <= S; s += 4) {
-          a0 = fmaf(row_s[s], t_s[col[static_cast<size_t>(s) * S]], a0);
-          a1 = fmaf(row_s[s + 1], t_s[col[static_cast<size_t>(s + 1) * S]], a1);
-          a2 = fmaf(row_s[s + 2], t_s[col[static_cast<size_t>(s + 2) * S]], a2);
-          a3 = fmaf(row_s[s + 3], t_s[col[static_cast<size_t>(s + 3) * S]], a3);
-        }
-        for (; s < S; ++s)
-          a0 = fmaf(row_s[s], t_s[col[static_cast<size_t>(s) * S]], a0);
-        raw = ((a0 + a1) + (a2 + a3)) * e;
+        float f = 0.f, all = 0.f;
+        gather_list(lst + j, S, sh.goff, P, src, wb, inv, f, all);
+        x = __fmul_rn(fmaf(t0, full[ws + j] != 0 ? all : rn, f), e);
       }
-      work_s[j] = raw;
-      tot += raw;
+      dst[j] = x;
+      tsum += x;
     }
-    tot = warp_sum(tot);
-    if (lane == 0) red_tot[warp] = tot;
-    __syncthreads();
-    tot = red_tot[0];
-    for (int r = 1; r < nwarps; ++r) tot += red_tot[r];
-
-    for (int j = tid; j < S; j += nt) {
-      const float v = tot > 0.f ? work_s[j] / tot : uni_s[j];
-      row_s[j] = v;
-      out_i[j] = v;
-    }
+    float tot, nmx;
+    reduce_step(sh, cur, tsum, nm, lane, warp, nwarps, tot, nmx);
+    mx = nmx;
+    ahead = has_next;
+    ok = tot > 0.f;
+    inv = ok ? 1.f / tot : 1.f;
+    for (int j = tid; j < S; j += nt) out_i[j] = ok ? dst[j] * inv : sh.uni[j];
     fresh = false;
+    ++r;
   }
 }
 
@@ -243,38 +653,72 @@ int device_shared_limit() {
   return optin;
 }
 
+// fb_kernel's shared bytes before the lists
+size_t base_bytes(long S) {
+  return kCommonBytes + static_cast<size_t>(kRowBytes + kRingBytes) * (S + 1);
+}
+
+// fb_wide_kernel's
+size_t wide_bytes(long S) {
+  return kCommonBytes + static_cast<size_t>(kRowBytes) * S;
+}
+
+// the list words a thread of fb_kernel holds in registers (16 or 32), or 0
+int register_words(long S, long pairs, int optin) {
+  if (S > kRegThreads || pairs == 0) return 0;  // (no lists in fre mode)
+  const int words = pairs <= 16 ? 16 : pairs <= kRegWords ? kRegWords : 0;
+  return words > 0 && base_bytes(S) + tile_weight_bytes(words) <=
+                          static_cast<size_t>(optin) ? words : 0;
+}
+
 }  // namespace
 
-// The most states a launch takes on the current device: the per-state
-// arrays must fit in a block's shared memory (the overlap matrix moves to
-// device memory first).  -1 when the device cannot be queried.
+// The most states a launch takes on the current device: fb_wide_kernel's
+// per-state arrays must fit in a block's shared memory (the lists move to
+// device memory first), and a state index must fit in int16.  -1 when the
+// device cannot be queried.
 extern "C" long vg_fb_max_states() {
   const int optin = device_shared_limit();
-  return optin < 0 ? -1 : (optin - kFixedBytes) / kPerState;
+  if (optin < 0) return -1;
+  const long s = (optin - kCommonBytes) / kRowBytes;
+  return s < kMaxStates ? s : kMaxStates;
 }
 
 // logE f32 [W, N, S]; kind int32 [W, N]; lrf, lnrf, lrb, lnrb f32 [W, N];
-// ov uint8 [W, S, S]; log_w f32 [W, S]; smask bool (one byte) [W, S];
+// lists uint32 [W, pairs, S] (two uint16 state indices a word, pad index S),
+// goff int32 [W, P + 2] (each class's first slot; even), full uint8 [W, S]
+// (1: the column lists class 0 and leaves out classes above P), all three
+// unread when fre != 0; log_w f32 [W, S]; smask bool (one byte) [W, S];
 // alpha, beta f32 [W, N, S], every element written; 0 <= P <= 255;
 // fre != 0 for the 'fre' transition.  Launches on ``stream``; returns the
 // CUDA error of the launch (0 on success).
 extern "C" int vg_forward_backward(const float* logE, const int32_t* kind,
                                    const float* lrf, const float* lnrf,
                                    const float* lrb, const float* lnrb,
-                                   const uint8_t* ov, const float* log_w,
+                                   const uint32_t* lists, const int32_t* goff,
+                                   const uint8_t* full, const float* log_w,
                                    const uint8_t* smask, float* alpha,
                                    float* beta, long W, long N, long S, int P,
-                                   int fre, void* stream) {
+                                   long pairs, int fre, void* stream) {
   if (W <= 0 || N <= 0 || S <= 0) return 0;
   const int optin = device_shared_limit();
   if (optin < 0) return static_cast<int>(cudaGetLastError());
-  const size_t base = kFixedBytes + static_cast<size_t>(kPerState) * S;
-  const size_t with_ov = base + static_cast<size_t>(S) * S;
-  const bool ov_shared = with_ov <= static_cast<size_t>(optin);
-  const size_t bytes = ov_shared ? with_ov : base;
-  if (bytes > static_cast<size_t>(optin) || W > 0x7fffffffL || N > 0x7fffffffL)
+  if (fre) pairs = 0;
+  const size_t limit = static_cast<size_t>(optin);
+  // one state a thread while S fits a block and its ring fits beside it
+  const bool one = S <= kMaxThreads && base_bytes(S) <= limit;
+  const int words = one ? register_words(S, pairs, optin) : 0;
+  const size_t base = one ? base_bytes(S) : wide_bytes(S);
+  const size_t with_lists = base + static_cast<size_t>(pairs) * S * 4;
+  const bool shared = words == 0 && with_lists <= limit;
+  const size_t bytes = words > 0 ? base + tile_weight_bytes(words) : shared ? with_lists : base;
+  if (bytes > limit || W > 0x7fffffffL || N > 0x7fffffffL || S > kMaxStates ||
+      pairs > 0x7fffffffL)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = ov_shared ? fb_kernel<true> : fb_kernel<false>;
+  decltype(&fb_wide_kernel) kern = !one ? fb_wide_kernel
+                                   : words == 16 ? fb_kernel<16>
+                                   : words == kRegWords ? fb_kernel<kRegWords>
+                                                        : fb_kernel<0>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -282,7 +726,8 @@ extern "C" int vg_forward_backward(const float* logE, const int32_t* kind,
       S >= kMaxThreads ? kMaxThreads : ((S + 31) / 32) * 32);
   kern<<<dim3(static_cast<unsigned>(W), 2), threads, bytes,
          static_cast<cudaStream_t>(stream)>>>(
-      logE, kind, lrf, lnrf, lrb, lnrb, ov, log_w, smask, alpha, beta,
-      static_cast<int>(N), static_cast<int>(S), P, fre);
+      logE, kind, lrf, lnrf, lrb, lnrb, lists, goff, full, log_w, smask, alpha,
+      beta, static_cast<int>(N), static_cast<int>(S), P,
+      static_cast<int>(pairs), shared ? 1 : 0, fre);
   return static_cast<int>(cudaGetLastError());
 }
