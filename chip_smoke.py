@@ -7,8 +7,8 @@ Needs one CUDA card, nvcc (under $CUDA_HOME or /usr/local/cuda) and this
 checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the kernel builds (csrc/join.cu, csrc/cbf.cu and csrc/fb.cu, one nvcc
-     each, started together), timed;
+  2. the kernel builds (csrc/join.cu, csrc/cbf.cu, csrc/fb.cu and
+     csrc/sketch.cu, one nvcc each, started together), timed;
   3. the counting kernels of csrc/join.cu against their plain torch
      versions on the card, exactly equal on edge cases, each at its table's
      own key directory and at skewed ones: the join (count_join_) and the
@@ -32,7 +32,8 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
   6. construct on the card: ``cli.main(["construct", ..., "--device",
      "cuda"])`` on the fixture's inputs (k = 27, seed 0) must write a .vgt
      whose every member equals the committed, JAX-built graph.vgt; the
-     filter kernels must have launched; genotyping the port-built graph
+     filter kernels and the context sketch (sketch_contexts) must have
+     launched; genotyping the port-built graph
      (count_packed once per batch) must agree with the truth at >= 99% of
      the sites;
   7. the Bloom filter kernels against their plain torch versions on the
@@ -45,21 +46,32 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      the fused add over that batch's bases and over a 50 Mb chromosome,
      beside the old path (torch sketch + key add) and the plain version;
   8. the exact-count regime (``_CBF_DEVICE_MAX`` set to 1): construct must
-     launch the join, and every count it fed the table must equal the same
-     counter run with the plain join on the card;
+     count its genome through count_codes (one launch a chromosome), with
+     no join launch and no torch sketch call, and every count it fed the
+     table must equal the same counter run with the plain version on the
+     card (the torch sketch, then the plain join);
   9. construct at a realistic size: a 100 Mb, 2-chromosome genome and a VCF
      of 50,000 sites x 50 samples (tools/gen_big.py's generators), a
-     2^30-cell (1 GiB) filter on the card; phase times, table checks, the
-     file read back; the genome-count phase must launch cbf_add_codes, and
-     neither the key add nor the torch sketch; its filter equal to the
-     plain version's over the whole genome and to the old path (torch
-     sketch, key add), timed beside it;
+     2^30-cell (1 GiB) filter on the card; phase times (the index's
+     "context sketch + dedup" step among them), table checks, the file read
+     back; the genome-count phase must launch cbf_add_codes and not the key
+     add, the index the context sketch, and the whole construct must make
+     no torch sketch call; its filter equal to the plain version's over the
+     whole genome and to the old path (torch sketch, key add), timed beside
+     it;
+ 9b. the same 100 Mb construct in the exact regime (``_CBF_DEVICE_MAX`` set
+     to 1), the path of every genome above ~224 Mb on one card:
+     count_codes once a chromosome, no torch sketch call, and every count
+     equal to the plain version's on the same candidates; its genome-count
+     phase seconds;
  10. the reference graph.bin: the committed 2 Mb graph written as graph.bin,
      ``genotype --load-graph graph.bin --device cuda`` through the CLI
      (count_packed once per batch, S1 must meet the 99% GT gate), the loaded
      table equal
      to the .vgt's, whether the rebuilt local bits equal the construct-time
-     ones, and a timed graph.bin write and load of phase 9's 100 Mb graph;
+     ones, and a timed graph.bin write and load of phase 9's 100 Mb graph,
+     whose load must launch the context sketch and logs its seconds split
+     into parse, walk, sketch and bit fill;
  11. two processes: S1's reads split into two FASTQ files, two genotype CLI
      processes on the card joined by ``--coordinator localhost:PORT
      --num-processes 2`` (each under a timeout, both killed on failure),
@@ -102,19 +114,34 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      launches, S1's GT agreement with the generator's truth (reported, not
      a gate); then ``genotype_torch`` on the saved counts through the kernel
      and with the plain forward/backward routed in must give the same GT,
-     UK and NAK at every site, GPP within 2e-3.
+     UK and NAK at every site, GPP within 2e-3;
+ 15. the sketch kernels of csrc/sketch.cu against their plain torch
+     versions on the card, exactly equal: count_codes on N-bearing genomes
+     (Ns at row edges, (AT)n, a poly-A run counting past 255, keys with bit
+     63 set) at k = 5, 16, 27, 28, at each table's own key directory and at
+     skewed ones; the context sketch on contexts of length 0, < k, k, 160
+     and thousands with N runs and (AT)n at the same k, and on contexts of
+     50,000 and 1,000,000 bases against the numpy sketch_ref; then
+     count_codes timed on phase 7's 50 Mb chromosome against phase 9's
+     table keys and phase 3's 24M-key table, beside the old path (the torch
+     sketch, then the join kernel) and the plain version, and the context
+     sketch on phase 9's distinct contexts, beside its dedup alone and the
+     plain version (the old padded torch batches and per-context
+     np.unique), each with its bound.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
-the counting kernels, at m = 2^30 for the filter kernels and at phase 13's
+the counting kernels, at m = 2^30 for the filter kernels, at the 50 Mb
+chromosome and phase 9's table for count_codes, at phase 9's contexts for
+the context sketch, and at phase 13's
 S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
 and dense-bound figures and the S = 465 group's under ``s465``: the key add
 and the count at one batch, with
 the per-shard ``shard_ms``,
 ``shard_plain_ms`` and ``shard_bound_ms``; the fused add at a 50 Mb
 chromosome, with its ``old_path_ms`` and its ``batch_*`` times; the key add
-launches on no main path since the fused add, ``on_main_path`` says so);
+and the join launch on no main path, ``on_main_path`` says so);
 its last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -146,6 +173,8 @@ import varigraph_tpu_torch.genotype.engine_torch as engine_torch_mod
 import varigraph_tpu_torch.genotype.pipeline as pipeline_mod
 import varigraph_tpu_torch.index.build as build_mod
 import varigraph_tpu_torch.ops.cbf as cbf_mod
+import varigraph_tpu_torch.ops.kmer as kmer_mod
+import varigraph_tpu_torch.ops.sketch as sketch_mod
 from varigraph_tpu_torch.cli import main as cli_main
 from varigraph_tpu_torch.config import VarigraphConfig
 from varigraph_tpu_torch.genotype.combos import increment_vector
@@ -157,7 +186,7 @@ from varigraph_tpu_torch.genotype.pipeline import load_counts
 from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
-from varigraph_tpu_torch.ops import cbf_cuda, fb_cuda, join_cuda
+from varigraph_tpu_torch.ops import cbf_cuda, fb_cuda, join_cuda, sketch_cuda
 from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
@@ -167,7 +196,10 @@ from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.kmer import (pack_codes_np, sketch_codes,
                                           sketch_packed)
-from varigraph_tpu_torch.ops.sketch_ref import encode_bases_np
+from varigraph_tpu_torch.ops.sketch import (count_codes_plain, dedup_contexts,
+                                            encode_contexts,
+                                            sketch_contexts_plain)
+from varigraph_tpu_torch.ops.sketch_ref import encode_bases_np, sketch_ref
 from varigraph_tpu_torch.ops.table import (count_join, count_packed,
                                            directory_bits, directory_shift,
                                            key_directory)
@@ -482,7 +514,8 @@ def main_batch(genome: dict[str, str], device) -> torch.Tensor:
 def phase_counting(device, gi, genome):
     """Phase 3: the counting kernels against plain, then timed at the main
     path's batch shape against the test graph's table and a 24M-key table.
-    Returns (times by table, join max abs error, packed max abs error)."""
+    Returns (times by table, join max abs error, packed max abs error, the
+    24M-key table)."""
     err_join = check_join(join_cuda.count_join_, plain_join, device)
     err_packed = check_packed(device)
     packed = main_batch(genome, device)
@@ -538,8 +571,7 @@ def phase_counting(device, gi, genome):
               f"    old path (torch sketch + join kernel) {o1:.4f}/{o2:.4f} ms\n"
               f"    count_join kernel (directory) {j1:.4f}/{j2:.4f} ms, plain "
               f"{jp1:.4f}/{jp2:.4f} ms, bound {jb:.4f} ms ({jby})")
-    del big
-    return timings, err_join, err_packed
+    return timings, err_join, err_packed, big
 
 
 def check_counted_per_batch(log_text: str, launches, where: str) -> int:
@@ -684,6 +716,34 @@ def counted_scans():
         yield calls
     finally:
         engine_torch_mod._scan = saved
+
+
+@contextlib.contextmanager
+def counted_torch_sketches():
+    """Counts, by name, the calls of the torch ``sketch_codes`` and of the
+    plain versions of the genome and context sketches while it is open,
+    through every module of the port that names them."""
+    calls = collections.Counter()
+    originals = {"sketch_codes": kmer_mod.sketch_codes,
+                 "count_codes_plain": sketch_mod.count_codes_plain,
+                 "sketch_contexts_plain": sketch_mod.sketch_contexts_plain,
+                 "cbf_add_codes_plain": cbf_mod.cbf_add_codes_plain}
+    patched = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith("varigraph_tpu_torch."):
+            continue
+        for name, fn in originals.items():
+            if getattr(mod, name, None) is fn:
+                def counted(*a, _fn=fn, _name=name, **kw):
+                    calls[_name] += 1
+                    return _fn(*a, **kw)
+                setattr(mod, name, counted)
+                patched.append((mod, name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
 
 
 def check_fb_on_card(launches, scans, where: str) -> None:
@@ -1017,9 +1077,18 @@ def time_cbf(device) -> tuple[dict[str, tuple], int]:
 
 # ----------------------------------------------------------------- phase 8
 
-def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
-    """Construct in the exact-count regime; returns (launches, max abs
-    difference of the kernel's counts from the plain join's)."""
+def plain_count_codes(cov, keys, directory, codes, k):
+    """The plain exact count under the kernel wrapper's signature (it needs
+    no directory)."""
+    count_codes_plain(cov, keys, codes, k)
+
+
+def exact_construct(ref: str, vcf: str, out: str, chroms: int, where: str):
+    """Construct in the exact-count regime (``_CBF_DEVICE_MAX`` set to 1);
+    fails unless the genome went through count_codes once a chromosome,
+    with no join or filter launch, the contexts through sketch_contexts,
+    and no torch sketch call anywhere.  Returns (launches, log, wall
+    seconds, the queried candidates, their counts)."""
     fed = []
 
     class Recording(ExactGenomeCounter):
@@ -1028,35 +1097,46 @@ def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
             fed.append((np.array(hashes, np.uint64), counts))
             return counts
 
-    out = os.path.join(work, "exact.vgt")
     saved = build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter
     build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = 1, Recording
     try:
-        LAUNCHES.clear()
-        log_text, wall = construct(os.path.join(FIXTURE, "ref.fa.gz"),
-                                   os.path.join(FIXTURE, "vars.vcf.gz"), out)
-        launches = dict(LAUNCHES)
+        with counted_torch_sketches() as sketches:
+            LAUNCHES.clear()
+            log_text, wall = construct(ref, vcf, out)
+            launches = dict(LAUNCHES)
     finally:
         build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = saved
-    print(f"  launches {launches}; construct CLI wall {wall:.2f} s")
-    if (not launches.get("count_join") or launches.get("cbf_add")
-            or launches.get("cbf_add_codes")):
-        fail("the exact regime did not count through the join kernel alone")
+    print(f"  {where}: launches {launches}; torch sketch calls "
+          f"{dict(sketches)}; construct CLI wall {wall:.2f} s")
+    if (launches.get("count_codes") != chroms or launches.get("count_join")
+            or launches.get("cbf_add") or launches.get("cbf_add_codes")
+            or not launches.get("sketch_contexts") or sum(sketches.values())):
+        fail(f"{where}: the exact regime did not count through count_codes "
+             "once a chromosome and sketch its contexts on the card alone")
     if len(fed) != 1:
-        fail(f"the exact counter was queried {len(fed)} times, not once")
-    queries, counts = fed[0]
+        fail(f"{where}: the exact counter was queried {len(fed)} times, not once")
+    return launches, log_text, wall, fed[0][0], fed[0][1]
+
+
+def phase_exact(device, work: str, genome: dict[str, str]) -> tuple[dict, int]:
+    """Construct in the exact-count regime; returns (launches, max abs
+    difference of the kernel's counts from the plain version's)."""
+    out = os.path.join(work, "exact.vgt")
+    launches, _, _, queries, counts = exact_construct(
+        os.path.join(FIXTURE, "ref.fa.gz"), os.path.join(FIXTURE, "vars.vcf.gz"),
+        out, len(genome), "the 2 Mb exact regime")
     plain = ExactGenomeCounter(genome, K, device=device,
-                               join=plain_join).count(queries)
+                               count=plain_count_codes).count(queries)
     err = int(np.abs(counts.astype(np.int64) - plain.astype(np.int64)).max())
     with np.load(out) as z, np.load(os.path.join(FIXTURE, "graph.vgt")) as c:
         keys = z["tbl_keys"]
         covered = np.isin(keys, queries).all()
-        print(f"  {len(queries)} candidate k-mers counted, kernel vs plain join "
+        print(f"  {len(queries)} candidate k-mers counted, kernel vs plain "
               f"max_abs_err {err}; {len(keys)} table keys, all among them: "
               f"{covered}; the filter-regime table has {len(c['tbl_keys'])} keys, "
               f"{int(np.isin(keys, c['tbl_keys']).sum())} shared")
     if err or not covered:
-        fail("exact genome counts differ between the join kernel and plain")
+        fail("exact genome counts differ between count_codes and plain")
     return launches, err
 
 
@@ -1140,54 +1220,53 @@ def check_big_filter(device, ref: str, queries: torch.Tensor, bf,
 def phase_big(device, work: str):
     """Construct at BIG_MB Mb; returns (launches, the filter kernels' max
     abs difference from plain at the construct's 2^30 cells, the genome
-    FASTA, the loaded graph, its .vgt path, the construct's genome filter,
-    S1's haplotype sequences, S1's truth)."""
+    FASTA and VCF, the loaded graph, its .vgt path, the construct's genome
+    filter, S1's haplotype sequences, S1's truth, the distinct contexts the
+    index sketched)."""
     t0 = time.perf_counter()
     ref, vcf, haps, truth = make_big_inputs(work)
     print(f"  generated {BIG_MB} Mb x {BIG_CHROMS} chromosomes, {BIG_SITES} sites x "
           f"{BIG_SAMPLES} samples in {time.perf_counter() - t0:.1f} s")
     out = os.path.join(work, "big.vgt")
-    made, phase, sketches = [], {}, collections.Counter()
+    made, phase, contexts = [], {}, []
 
     class Recording(CountingBloomFilter):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             made.append(self)
 
-    def counted(fn):
-        def call(*a, **kw):
-            sketches["torch sketch"] += 1
-            return fn(*a, **kw)
-        return call
-
     def genome_counts(*a, **kw):
-        before, n = collections.Counter(LAUNCHES), sketches["torch sketch"]
+        before = collections.Counter(LAUNCHES)
         bf = saved[1](*a, **kw)
         phase["launches"] = collections.Counter(LAUNCHES) - before
-        phase["sketches"] = sketches["torch sketch"] - n
         return bf
 
+    def recorded_csr(ctxs, *a, **kw):
+        contexts.append(ctxs)
+        return saved[2](ctxs, *a, **kw)
+
     saved = (build_mod.CountingBloomFilter, build_mod.make_genome_cbf,
-             build_mod.sketch_codes, cbf_mod.sketch_codes)
-    build_mod.CountingBloomFilter, build_mod.make_genome_cbf = Recording, genome_counts
-    build_mod.sketch_codes = counted(saved[2])
-    cbf_mod.sketch_codes = counted(saved[3])
+             build_mod.context_csr)
+    (build_mod.CountingBloomFilter, build_mod.make_genome_cbf,
+     build_mod.context_csr) = Recording, genome_counts, recorded_csr
     try:
-        LAUNCHES.clear()
-        log_text, wall = construct(ref, vcf, out)
-        launches = dict(LAUNCHES)
+        with counted_torch_sketches() as sketches:
+            LAUNCHES.clear()
+            log_text, wall = construct(ref, vcf, out)
+            launches = dict(LAUNCHES)
     finally:
         (build_mod.CountingBloomFilter, build_mod.make_genome_cbf,
-         build_mod.sketch_codes, cbf_mod.sketch_codes) = saved
-    if len(made) != 1:
-        fail(f"the {BIG_MB} Mb construct made {len(made)} filters, not one")
+         build_mod.context_csr) = saved
+    if len(made) != 1 or len(contexts) != 1:
+        fail(f"the {BIG_MB} Mb construct made {len(made)} filters and "
+             f"{len(contexts)} context sketches, not one each")
     print(f"  launches {launches}; in the genome-count phase "
-          f"{dict(phase['launches'])} and {phase['sketches']} torch sketch "
-          f"calls")
+          f"{dict(phase['launches'])}; torch sketch calls in the whole "
+          f"construct {dict(sketches)}")
     if (not phase["launches"]["cbf_add_codes"] or phase["launches"]["cbf_add"]
-            or phase["sketches"]):
-        fail("the genome-count phase did not count through cbf_add_codes "
-             "alone")
+            or not launches.get("sketch_contexts") or sum(sketches.values())):
+        fail("the construct did not count its genome through cbf_add_codes "
+             "and sketch its contexts on the card alone")
     if not launches.get("cbf_count"):
         fail(f"the {BIG_MB} Mb construct did not launch cbf_count")
     m = re.search(r"Counting Bloom Filter size: (\d+)", log_text)
@@ -1197,6 +1276,12 @@ def phase_big(device, work: str):
     print("  construct phase timings:")
     timings = construct_timings(log_text)
     print_timings(timings, wall)
+    m = re.search(r"aggregation: (context sketch \+ dedup .*)$", log_text, re.M)
+    print(f"  {len(contexts[0])} distinct contexts of "
+          f"{sum(map(len, contexts[0]))} bases; the index's step: "
+          f"{m.group(1) if m else 'missing'}")
+    if not m:
+        fail("no 'context sketch + dedup' step in the construct log")
     gi = load_graph(out, device=device)
     keys = gi.table.keys_np()
     freq = gi.table.freq_np()
@@ -1210,7 +1295,40 @@ def phase_big(device, work: str):
                            timings["genome counts"])
     if err:
         fail(f"the filter kernels disagree with plain on the {BIG_MB} Mb genome")
-    return launches, err, ref, gi, out, made[0], haps, truth
+    return launches, err, ref, vcf, gi, out, made[0], haps, truth, contexts[0]
+
+
+def phase_big_exact(device, work: str, ref: str, vcf: str, filter_keys: int
+                    ) -> tuple[dict, int]:
+    """Phase 9's construct in the exact regime; returns (launches, max abs
+    difference of its counts from the plain version's on the same
+    candidates).  The exact count runs when the index queries it, so its
+    seconds are the index's "genome k-mer frequencies" step."""
+    out = os.path.join(work, "big_exact.vgt")
+    launches, log_text, wall, queries, counts = exact_construct(
+        ref, vcf, out, BIG_CHROMS, f"the {BIG_MB} Mb exact regime")
+    print("  construct phase timings:")
+    timings = construct_timings(log_text)
+    print_timings(timings, wall)
+    genome = read_fasta(ref)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ExactGenomeCounter(genome, K, device=device,
+                               count=plain_count_codes).count(queries)
+    plain_s = time.perf_counter() - t0
+    err = int(np.abs(counts.astype(np.int64) - plain.astype(np.int64)).max())
+    with np.load(out) as z:
+        n_keys = len(z["tbl_keys"])
+    print(f"  {len(queries)} candidate k-mers counted, {int((counts > 0).sum())} "
+          f"present in the genome, {int((counts == 255).sum())} at the cap; "
+          f"count_codes vs the plain version (torch sketch, plain join) "
+          f"max_abs_err {err}; the genome count (the index's genome k-mer "
+          f"frequencies step) {timings['index: genome k-mer frequencies']:.2f} "
+          f"s, the plain count of the same candidates {plain_s:.2f} s (host "
+          f"clock); {n_keys} table keys (the filter regime's: {filter_keys})")
+    if err:
+        fail(f"the {BIG_MB} Mb exact counts differ between count_codes and plain")
+    return launches, err
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1265,22 +1383,34 @@ def phase_interop(device, work: str, cfg_path: str, big_gi, big_vgt: str):
     if not same_tbl:
         fail("the table loaded from graph.bin differs from the .vgt's")
 
+    if not launches.get("sketch_contexts"):
+        fail("the graph.bin load did not sketch its contexts on the card")
     big_bin = os.path.join(work, "big.bin")
     t0 = time.perf_counter()
     save_reference_graph_bin(big_gi, big_bin)
     t_save = time.perf_counter() - t0
+    tee = _Tee(sys.stderr)
+    LAUNCHES.clear()
     t0 = time.perf_counter()
-    back = load_graph(big_bin, device=device, threads=os.cpu_count() or 1)
+    with counted_torch_sketches() as sketches, contextlib.redirect_stderr(tee):
+        back = load_graph(big_bin, device=device, threads=os.cpu_count() or 1)
     t_load = time.perf_counter() - t0
+    load_launches = dict(LAUNCHES)
+    split = re.search(r"graph\.bin load timing: (.*)$", tee.buf.getvalue(), re.M)
     same, n = _same_local_bits(back, load_graph(big_vgt))
     ok = _same_table(back, big_gi)
     print(f"  {BIG_MB} Mb graph.bin ({os.path.getsize(big_bin) / 1e6:.1f} MB): "
           f"write {t_save:.2f} s, load {t_load:.2f} s (local bits rebuilt on "
-          f"the card); table equal: {ok}; local bits equal at {same}/{n} "
-          f"variant nodes")
+          f"the card; {split.group(1) if split else 'no split logged'}); "
+          f"launches {load_launches}, torch sketch calls {dict(sketches)}; "
+          f"table equal: {ok}; local bits equal at {same}/{n} variant nodes")
     if not ok:
         fail(f"the {BIG_MB} Mb table loaded from graph.bin differs")
-    return launches
+    if (not split or not load_launches.get("sketch_contexts")
+            or sum(sketches.values())):
+        fail(f"the {BIG_MB} Mb graph.bin load did not sketch its contexts "
+             "through the kernel alone, or logged no time split")
+    return collections.Counter(launches) + collections.Counter(load_launches)
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1522,9 +1652,10 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
         if len(made) != 1 or len(made[0].shards) != mesh.size:
             fail("construct did not build its filter over the mesh")
         if (LAUNCHES["cbf_add_codes"] < mesh.size or LAUNCHES["cbf_add"]
-                or LAUNCHES["cbf_count"] < mesh.size):
+                or LAUNCHES["cbf_count"] < mesh.size
+                or not LAUNCHES["sketch_contexts"]):
             fail("the sharded construct did not launch the filter kernels "
-                 "on every shard")
+                 "on every shard and the context sketch")
         if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
             fail("the sharded construct differs from the committed graph")
 
@@ -1909,6 +2040,241 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+
+LONG_CONTEXTS, LONG_CONTEXT_K = (50_000, 1_000_000), 28
+
+
+def genome_keys(genome: dict[str, torch.Tensor], k: int, device) -> torch.Tensor:
+    """Every value the genome's rows emit (the plain sketch) and decoys,
+    half of them with bit 63 set, sorted and unique as unsigned values."""
+    vals = []
+    for codes in genome.values():
+        values, emit = sketch_codes(
+            genome_row_codes(codes, k, 0, genome_rows(codes.numel(), k)), k)
+        vals.append(values[emit])
+    decoys = _kmer_values(500, torch.Generator(device=device).manual_seed(k),
+                          device, span=k)
+    decoys[::2] |= -(1 << 63)
+    return _sorted_unique(torch.cat([*vals, decoys]))
+
+
+def check_count_codes(device) -> int:
+    """count_codes_ against plain on the edge genomes at k = 5, 16, 27, 28,
+    at each table's own directory and at skewed ones; returns the max abs
+    difference (must be 0)."""
+    worst = 0
+    for k in PACKED_CASE_KS:
+        genome = {c: torch.from_numpy(v).to(device)
+                  for c, v in edge_genome(k).items()}
+        keys = genome_keys(genome, k, device)
+        want = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
+        for codes in genome.values():
+            count_codes_plain(want, keys, codes, k)
+        for bits in (directory_bits(keys.numel()), *SKEWED_DIRECTORY_BITS):
+            got = torch.zeros_like(want)
+            for codes in genome.values():
+                sketch_cuda.count_codes_(got, keys, key_directory(keys, bits),
+                                         codes, k)
+            torch.cuda.synchronize(device)
+            err = int((got - want).abs().max())
+            print(f"  count_codes k={k}: {keys.numel()} keys "
+                  f"({int((keys < 0).sum())} with bit 63), directory 2^{bits}, "
+                  f"max count {int(want.max())}, max_abs_err {err}")
+            if err:
+                fail(f"count_codes disagrees with plain at k={k}, directory 2^{bits}")
+            worst = max(worst, err)
+        if int(want.max()) <= 255:
+            fail(f"the poly-A run did not count past 255 at k={k}")
+    return worst
+
+
+def context_cases(k: int) -> list[str]:
+    """Contexts of lengths 0, 1, k - 1, k, k + 1, 160, 3,000 and random ones
+    with a few Ns; one with N runs (one longer than k) and single Ns, one of
+    (AT)n around random bases, one poly-A, one in lower case."""
+    rng = np.random.default_rng(100 + k)
+
+    def rand(n, p_n=0.0):
+        p = [(1 - p_n) / 4] * 4 + [p_n]
+        return "".join(rng.choice(list("ACGTN"), size=int(n), p=p))
+
+    ctxs = [rand(n) for n in (0, 1, k - 1, k, k + 1, GENOME_COLS, 3000)]
+    ctxs += [rand(n, 0.02) for n in rng.integers(k, 300, 20)]
+    ctxs.append(rand(150) + "N" * (2 * k + 1) + rand(90) + "N" + rand(40))
+    ctxs.append("AT" * 60 + rand(50) + "TA" * 40)
+    ctxs.append("A" * 400)
+    ctxs.append(rand(200, 0.02).lower())
+    return ctxs
+
+
+def _to_card(arrays, device):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def check_contexts(device) -> int:
+    """The context kernel against plain on the edge cases at k = 5, 16, 27,
+    28, and on contexts of 50,000 and 1,000,000 bases against sketch_ref;
+    returns 0 (any difference fails)."""
+    for k in PACKED_CASE_KS:
+        codes, offsets = _to_card(encode_contexts(context_cases(k)), device)
+        got = sketch_cuda.sketch_contexts(codes, offsets, k)
+        want = sketch_contexts_plain(codes, offsets, k)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"  sketch_contexts k={k}: {offsets.numel() - 1} contexts, "
+              f"{got[0].numel()} values, equal to plain: {same}")
+        if not same:
+            fail(f"the context kernel disagrees with plain at k={k}")
+    rng = np.random.default_rng(5)
+    ctxs = []
+    for n in LONG_CONTEXTS:
+        c = rng.integers(0, 4, n).astype(np.uint8)
+        c[n // 3:n // 3 + 5000] = 4
+        c[n // 2:n // 2 + 2000] = np.tile([0, 3], 1000)
+        c[n // 4:n // 4 + 3000] = 0
+        c[rng.integers(0, n, 50)] = 4
+        ctxs += [np.frombuffer(b"ACGTN", np.uint8)[c].tobytes().decode(), "ACGT" * 10]
+    codes, offsets = _to_card(encode_contexts(ctxs), device)
+    values, starts = sketch_cuda.sketch_contexts(codes, offsets, LONG_CONTEXT_K)
+    v, st = values.cpu().numpy().view(np.uint64), starts.cpu().numpy()
+    for i, c in enumerate(ctxs):
+        want = np.unique(np.array(sketch_ref(c, LONG_CONTEXT_K), np.uint64))
+        same = np.array_equal(v[st[i]:st[i + 1]], want)
+        print(f"  sketch_contexts k={LONG_CONTEXT_K}, a context of {len(c)} bases "
+              f"(beside {len(ctxs) - 1} others): {len(want)} unique values, "
+              f"equal to sketch_ref: {same}")
+        if not same:
+            fail(f"the context kernel disagrees with sketch_ref on {len(c)} bases")
+    return 0
+
+
+def old_exact_path(cov, keys, directory, codes, k):
+    """The exact count before count_codes: rows of a batch through the torch
+    sketch, then the join kernel on its value array."""
+    rows = genome_rows(codes.numel(), k)
+    for r0 in range(0, rows, BATCH):
+        values, emit = sketch_codes(
+            genome_row_codes(codes, k, r0, min(rows, r0 + BATCH)), k)
+        join_cuda.count_join_(cov, keys, directory,
+                              values[:, k - 1:].reshape(-1).contiguous(),
+                              emit[:, k - 1:].reshape(-1).contiguous())
+
+
+def emitted_values(codes: torch.Tensor, k: int) -> tuple[torch.Tensor, int]:
+    """(every value the genome rows of codes emit, the bases the rows
+    hold), with the plain sketch a batch of rows at a time."""
+    rows = genome_rows(codes.numel(), k)
+    vals = []
+    for r0 in range(0, rows, BATCH):
+        values, emit = sketch_codes(
+            genome_row_codes(codes, k, r0, min(rows, r0 + BATCH)), k)
+        vals.append(values[emit])
+    # every row but the last is whole
+    bases = (rows - 1) * GENOME_COLS + codes.numel() - (rows - 1) * (GENOME_COLS - k + 1)
+    return torch.cat(vals), bases
+
+
+def time_count_codes(device, tables: dict[str, torch.Tensor]) -> tuple[dict, int]:
+    """count_codes_ on phase 7's 50 Mb chromosome (torch seed 3) against
+    each table, held against plain, then timed (median of 7) beside the old
+    path and the plain version (once each after a warm-up): plain, old,
+    kernel, kernel, old, plain; with the bound from the chromosome's
+    emitted windows.  Returns (numbers by table, max abs difference)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    chrom = torch.randint(0, 4, (CHROM_BASES,), generator=gen, device=device,
+                          dtype=torch.uint8)
+    values, bases = emitted_values(chrom, K)
+    out, worst = {}, 0
+    for label, keys in tables.items():
+        d = key_directory(keys, directory_bits(keys.numel()))
+        a = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
+        b = torch.zeros_like(a)
+        sketch_cuda.count_codes_(a, keys, d, chrom, K)
+        count_codes_plain(b, keys, chrom, K)
+        err = int((a - b).abs().max())
+        worst = max(worst, err)
+        if err:
+            fail(f"count_codes disagrees with plain on the 50 Mb chromosome, {label}")
+
+        def timed(fn, runs):
+            cov = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
+            return time_ms(lambda: fn(cov, keys, d, chrom, K), before=cov.zero_,
+                           runs=runs)
+
+        p1, o1, k1 = (timed(plain_count_codes, 1), timed(old_exact_path, 1),
+                      timed(sketch_cuda.count_codes_, TIMING_RUNS))
+        k2, o2, p2 = (timed(sketch_cuda.count_codes_, TIMING_RUNS),
+                      timed(old_exact_path, 1), timed(plain_count_codes, 1))
+        bms, by = bound(chrom.numel() + lookup_bytes(keys, d, values),
+                        ROLL_OPS * bases + (WINDOW_OPS + LOOKUP_OPS) * values.numel())
+        out[label] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bms,
+                      "bound_by": by, "old_path_ms": min(o1, o2)}
+        print(f"  count_codes, {CHROM_BASES} bases ({values.numel()} windows) "
+              f"against the {label} ({keys.numel()} keys, directory "
+              f"2^{d.numel().bit_length() - 1}; {int(a.count_nonzero())} keys "
+              f"hit): kernel {k1:.4f}/{k2:.4f} ms, old path (torch sketch + "
+              f"join kernel) {o1:.2f}/{o2:.2f} ms, plain {p1:.2f}/{p2:.2f} ms, "
+              f"bound {bms:.4f} ms ({by}); kernel vs plain max_abs_err {err}")
+    return out, worst
+
+
+def time_contexts(device, contexts: list[str]) -> dict:
+    """The context sketch on phase 9's distinct contexts, held against plain,
+    then timed (median of 7) beside its dedup alone and the plain version
+    (the old padded torch batches and per-context np.unique; once after a
+    warm-up): plain, kernel, kernel, plain; with its bound (the codes and
+    offsets in, the unique values and starts out, and the registers' and
+    the hash's operations)."""
+    t0 = time.perf_counter()
+    host = encode_contexts(contexts)
+    encode_s = time.perf_counter() - t0
+    codes, offsets = _to_card(host, device)
+    captured = {}
+    saved = sketch_cuda.dedup_contexts
+
+    def capture(values, counts):
+        captured["in"] = values, counts
+        return saved(values, counts)
+
+    sketch_cuda.dedup_contexts = capture
+    try:
+        got = sketch_cuda.sketch_contexts(codes, offsets, K)
+    finally:
+        sketch_cuda.dedup_contexts = saved
+    want = sketch_contexts_plain(codes, offsets, K)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not same:
+        fail("the context kernel disagrees with plain on phase 9's contexts")
+    windows = captured["in"][0].numel()
+    p1, k1 = (time_ms(lambda: sketch_contexts_plain(codes, offsets, K), runs=1),
+              time_ms(lambda: sketch_cuda.sketch_contexts(codes, offsets, K)))
+    k2, p2 = (time_ms(lambda: sketch_cuda.sketch_contexts(codes, offsets, K)),
+              time_ms(lambda: sketch_contexts_plain(codes, offsets, K), runs=1))
+    dms = time_ms(lambda: dedup_contexts(*captured["in"]))
+    bms, by = bound(codes.numel() + 8 * (offsets.numel() + got[0].numel()
+                                         + got[1].numel()),
+                    ROLL_OPS * codes.numel() + WINDOW_OPS * windows)
+    lens = np.diff(host[1])
+    print(f"  sketch_contexts on phase 9's {len(contexts)} contexts ({codes.numel()} "
+          f"bases, longest {int(lens.max()) if len(lens) else 0}; {windows} windows "
+          f"emit, {got[0].numel()} unique in their contexts): kernel "
+          f"{k1:.4f}/{k2:.4f} ms (its dedup alone {dms:.4f} ms), plain "
+          f"{p1:.1f}/{p2:.1f} ms, bound {bms:.4f} ms ({by}); equal to plain: "
+          f"{same}; host encode {encode_s:.3f} s (host clock)")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bms,
+            "bound_by": by, "dedup_ms": dms, "encode_s": encode_s}
+
+
+def phase_sketch(device, tables: dict[str, torch.Tensor], contexts: list[str]):
+    """Phase 15; returns (count_codes' numbers by table, the context
+    sketch's numbers, count_codes' max abs error, the context sketch's)."""
+    err = check_count_codes(device)
+    ctx_err = check_contexts(device)
+    times, e = time_count_codes(device, tables)
+    ctx = time_contexts(device, contexts)
+    return times, ctx, max(err, e), ctx_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1935,15 +2301,16 @@ def main() -> int:
         mod.build()
         return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        for lib, secs in pool.map(timed_build, (join_cuda, cbf_cuda, fb_cuda)):
+    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for lib, secs in pool.map(timed_build, libs):
             print(f"  built {lib} in {secs:.2f} s")
 
     print("== 3. counting kernels against plain torch (tolerance: exactly "
           "equal integer counts), then timed")
     gi = load_graph(os.path.join(FIXTURE, "graph.vgt"), device=device)
     genome = read_fasta(os.path.join(FIXTURE, "ref.fa.gz"))[0]
-    timings, err, err_packed = phase_counting(device, gi, genome)
+    timings, err, err_packed, large_keys = phase_counting(device, gi, genome)
 
     print("== 4. main path: genotype CLI on the card")
     with tempfile.TemporaryDirectory() as work:
@@ -2007,9 +2374,9 @@ def main() -> int:
         main_launches.update(LAUNCHES)
         print(f"  launches {dict(LAUNCHES)}")
         if (not LAUNCHES["cbf_add_codes"] or LAUNCHES["cbf_add"]
-                or not LAUNCHES["cbf_count"]):
+                or not LAUNCHES["cbf_count"] or not LAUNCHES["sketch_contexts"]):
             fail("construct did not count its genome through cbf_add_codes "
-                 "and cbf_count")
+                 "and cbf_count, or its contexts through sketch_contexts")
         print_timings(construct_timings(log_text), wall)
         if compare_vgt(port_vgt, os.path.join(FIXTURE, "graph.vgt")):
             fail("the port-built graph differs from the committed JAX-built one")
@@ -2033,15 +2400,21 @@ def main() -> int:
         cbf_err = max(cbf_err, e)
 
         print("== 8. main path: construct in the exact-count regime")
-        exact_launches, e = phase_exact(device, work, genome)
+        exact_launches, count_codes_err = phase_exact(device, work, genome)
         main_launches.update(exact_launches)
-        err = max(err, e)
 
         print(f"== 9. main path: construct at {BIG_MB} Mb on the card")
-        (big_launches, e, big_ref, big_gi, big_vgt, big_filter, big_haps,
-         big_truth) = phase_big(device, work)
+        (big_launches, e, big_ref, big_vcf, big_gi, big_vgt, big_filter,
+         big_haps, big_truth, big_contexts) = phase_big(device, work)
         main_launches.update(big_launches)
         cbf_err = max(cbf_err, e)
+        big_keys = big_gi.table.keys
+
+        print(f"== 9b. main path: construct at {BIG_MB} Mb in the exact regime")
+        exact_launches, e = phase_big_exact(device, work, big_ref, big_vcf,
+                                            big_keys.numel())
+        main_launches.update(exact_launches)
+        count_codes_err = max(count_codes_err, e)
 
         print("== 10. main path: genotype from the reference graph.bin")
         main_launches.update(phase_interop(device, work, cfg_path, big_gi,
@@ -2067,6 +2440,14 @@ def main() -> int:
                                                 big_haps, big_truth))
         del big_haps
 
+    print("== 15. the sketch kernels against plain torch (tolerance: exactly "
+          "equal counts and values), then timed")
+    count_codes_times, ctx_times, e, ctx_err = phase_sketch(
+        device, {f"{BIG_MB} Mb table": big_keys, "24M-key": large_keys},
+        big_contexts)
+    count_codes_err = max(count_codes_err, e)
+    del big_keys, large_keys, big_contexts
+
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
     source = "varigraph_tpu_torch/csrc/{}.cu"
@@ -2080,8 +2461,31 @@ def main() -> int:
             "replaces": "varigraph_tpu/ops/join_pallas.py:57",
             "launches": main_launches[name], "max_abs_err": e,
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "on_main_path": main_launches[name] > 0,
         })
+    # the exact count at a 50 Mb chromosome against phase 9's table, and
+    # against the 24M-key table under large_*
+    t, big = (count_codes_times[f"{BIG_MB} Mb table"],
+              count_codes_times["24M-key"])
+    kernels.append({
+        "name": "count_codes", "route": "cuda", "source": source.format("sketch"),
+        "replaces": "varigraph_tpu/ops/exact_count.py:44",
+        "fused_with": "varigraph_tpu/ops/kmer.py:79",
+        "launches": main_launches["count_codes"], "max_abs_err": count_codes_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "old_path_ms": t["old_path_ms"], "large_ms": big["ms"],
+        "large_plain_ms": big["plain_ms"], "large_bound_ms": big["bound_ms"],
+        "large_bound_by": big["bound_by"], "large_old_path_ms": big["old_path_ms"],
+    })
+    kernels.append({
+        "name": "sketch_contexts", "route": "cuda",
+        "source": source.format("sketch"),
+        "replaces": "varigraph_tpu/ops/kmer.py:79",
+        "used_by": "varigraph_tpu/index/build.py:162",
+        "launches": main_launches["sketch_contexts"], "max_abs_err": ctx_err,
+        **ctx_times, "library_ms": None,
+    })
     for name, op, line in (("cbf_add", "add", 146), ("cbf_count", "count", 162)):
         kms, pms, bms, by = cbf_times[f"{op} m=2^30"]
         sms, spms, sbms = shard_times[op]

@@ -21,7 +21,7 @@ from varigraph_tpu_torch.ops.cbf import (  # noqa: E402
     genome_rows, make_seeds)
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter  # noqa: E402
 from varigraph_tpu_torch.ops.murmur3 import murmur3_x64_128_u64key  # noqa: E402
-from varigraph_tpu_torch.ops.table import count_join  # noqa: E402
+from varigraph_tpu_torch.ops.sketch import count_codes_plain  # noqa: E402
 from varigraph_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
 # The JAX side is imported inside the tests that use it: the machine with the
@@ -502,7 +502,7 @@ def test_cuda_kernel_matches_plain(name):
 @pytest.mark.cuda
 def test_cuda_exact_counter_matches_plain_join():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the join kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the count kernel has no CPU mode")
     from varigraph_tpu_torch.ops.kmer import sketch_seq
 
     _, genome = _exact_case()
@@ -512,7 +512,8 @@ def test_cuda_exact_counter_matches_plain_join():
     kernel = ExactGenomeCounter(genome, k, device="cuda").count(keys)
     plain = ExactGenomeCounter(
         genome, k, device="cuda",
-        join=lambda cov, keys, directory, q, m: count_join(cov, keys, q, m),
+        count=lambda cov, keys, directory, codes, k: count_codes_plain(
+            cov, keys, codes, k),
     ).count(keys)
     np.testing.assert_array_equal(kernel, plain)
     np.testing.assert_array_equal(kernel, ExactGenomeCounter(genome, k).count(keys))

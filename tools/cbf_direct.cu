@@ -34,7 +34,7 @@ __global__ void __launch_bounds__(kThreads)
   const long stride = (long)gridDim.x * blockDim.x;
   for (long r = (long)blockIdx.x * blockDim.x + threadIdx.x; r < nrows;
        r += stride) {
-    vgcbf::sketch_row(codes, n, row0 + r, k, [&](u64 v) {
+    vgk::sketch_row(codes, n, row0 + r, k, [&](u64 v) {
       for (int s = 0; s < kh; ++s) {
         const u64 local = vgcbf::position(v, s_seeds[s], m, mmask) - lo;
         if (local >= m_local) continue;

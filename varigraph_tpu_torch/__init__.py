@@ -9,9 +9,9 @@ copied, because importing any ``varigraph_tpu`` module imports jax.
 Ported so far, on one device:
   ``construct -r ref.fa -v vars.vcf.gz --save-graph G.vgt``:
   io/fasta.read_fasta -> index/graph.build_graph_from_vcf -> host context
-  walk -> genome counts (sketch in torch, the Bloom filter in
-  ``csrc/cbf.cu``, or above 2^31 cells an exact count through
-  ``csrc/join.cu``) -> context sketch, aggregation -> graph2node ->
+  walk -> genome counts (the Bloom filter in ``csrc/cbf.cu``, or above
+  2^31 cells an exact count in ``csrc/sketch.cu``) -> context sketch
+  (``csrc/sketch.cu``), aggregation -> graph2node ->
   index/serialize.save_graph, driven by index/build.construct_graph_index;
   ``genotype --load-graph G.vgt``:
   index/serialize.load_graph -> genotype/counting.count_reads (sketch and

@@ -9,7 +9,7 @@
 //   add_codes  the same add over every k-mer that the genome rows of a
 //   (vg_cbf_add_codes)  chromosome's base codes emit: rows [row0, row0 + nrows)
 //                of the segmentation of ops/cbf.genome_rows,
-//                each sketched from scratch (RowSketch)
+//                each sketched from scratch (RowSketch, csrc/kmer_device.cuh)
 //   count      out[j] = min over the seeds whose position falls in the shard of
 //   (vg_cbf_count)  filter[p - lo], and 255 when none does; the minimum of the
 //                shards' outputs is the count of the whole filter
@@ -151,9 +151,9 @@ struct RowSource {
   const unsigned char* codes;
   long n, row0;
   int k;
-  typedef vgcbf::RowSketch State;
+  typedef vgk::RowSketch State;
   __device__ __forceinline__ int steps(int bases) const {
-    return (vgcbf::kGenomeCols + bases - 1) / bases;
+    return (vgk::kGenomeCols + bases - 1) / bases;
   }
   __device__ __forceinline__ State begin(long item, bool valid) const {
     return State(n, row0 + item, k, valid);
@@ -203,7 +203,7 @@ __global__ void __launch_bounds__(kCountThreads)
   for (long it = (long)blockIdx.x * blockDim.x + threadIdx.x; it < items;
        it += stride) {
     auto st = src.begin(it, true);
-    src.advance(st, vgcbf::kGenomeCols, [&](u64 v) {
+    src.advance(st, vgk::kGenomeCols, [&](u64 v) {
       for (int s = 0; s < kh; ++s) {
         // unsigned: a position below lo wraps above m_local
         const u64 local = position(v, s_seeds[s], f.m, f.mmask) - f.lo;

@@ -10,15 +10,10 @@
 // unsigned 64-bit, so encodings with bit 63 set (k = 28) order correctly.
 //
 // The key directory.  Both entries find a key through dir, int32 [2^bits + 1]
-// (ops/table.key_directory): dir[p] is the lower bound in keys of p << s, with
-// s = max(0, bit length of keys[m-1] - bits), and dir[2^bits] = m.  The keys
-// are the output of an invertible mixer, so their top bits spread evenly; the
-// directory is sized for ~4 keys a bucket (one 32-byte sector), at most 2^22
-// buckets (16 MB, so it stays in L2).  A value's bucket is v >> s, two
-// neighbouring loads from the directory, and the search is a branch-free
-// lower bound of ~2 steps inside the bucket instead of log2(m) steps over the
-// whole table.  A skewed or empty bucket stays exact, only slower; a value
-// whose bucket lies past the directory is above every key.
+// (ops/table.key_directory), with find_key of csrc/kmer_device.cuh: a
+// value's bucket is two neighbouring loads from the directory, and the search
+// is a branch-free lower bound of ~2 steps inside the bucket instead of
+// log2(m) steps over the whole table.
 //
 // Replaces, on the TPU side:
 //   * vg_count_join: the Pallas banded merge-join
@@ -26,8 +21,9 @@
 //     inside count_merge_banded), which the JAX package uses for tables of up
 //     to 2M keys, and the XLA two-sort joins count_merge and count_merge_super
 //     (varigraph_tpu/ops/table.py) that it uses beside and above it.  All have
-//     this contract, so one kernel serves every table size.  The port runs it
-//     for construct's exact genome count, whose rows may hold ambiguous bases.
+//     this contract, so one kernel serves every table size.  No main path of
+//     the port launches it: construct's exact genome count sketches and looks
+//     up its genome rows in one kernel (vg_count_codes, csrc/sketch.cu).
 //   * vg_count_packed: the same join fused with the XLA sketch that feeds it,
 //     sketch_codes and unpack_2bit (varigraph_tpu/ops/kmer.py:79,143), on the
 //     read path.  It takes the packed batch as it arrives from the host, uint8
@@ -80,53 +76,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-typedef unsigned long long u64;
+#include "kmer_device.cuh"
 
 namespace {
+
+using vgk::bucket_shift;
+using vgk::find_key;
+using vgk::hash64;
+using vgk::roll;
+using vgk::u64;
 
 // threads per block; blocks are capped at 64 per SM of an H100 (132 SMs) and
 // walk the rest in a grid-stride loop
 constexpr int kThreads = 256;
 constexpr long kMaxBlocks = 132L * 64;
-
-// The bucket shift s of the directory (see above); m >= 1.
-__device__ __forceinline__ int bucket_shift(const u64* __restrict__ keys,
-                                            long m, int bits) {
-  const int len = 64 - __clzll((long long)__ldg(keys + m - 1));
-  return len > bits ? len - bits : 0;
-}
-
-// Index of v in keys, or -1.
-__device__ __forceinline__ long find_key(const u64* __restrict__ keys,
-                                         const int* __restrict__ dir, int bits,
-                                         int shift, u64 v) {
-  const u64 p = v >> shift;
-  if (p >> bits) return -1;  // above every key
-  long base = __ldg(dir + p);
-  const long end = __ldg(dir + p + 1);
-  long n = end - base;
-  if (n <= 0) return -1;
-  // the lower bound of v stays in [base, base + n]
-  while (n > 1) {
-    const long half = n >> 1;
-    base = (__ldg(keys + base + half) < v) ? base + half : base;
-    n -= half;
-  }
-  base += (__ldg(keys + base) < v);
-  return (base < end && __ldg(keys + base) == v) ? base : -1;
-}
-
-// Invertible integer finalizer (reference include/hash64.hpp:5-14).
-__device__ __forceinline__ u64 hash64(u64 key, u64 mask) {
-  key = (~key + (key << 21)) & mask;
-  key = key ^ (key >> 24);
-  key = ((key + (key << 3)) + (key << 8)) & mask;
-  key = key ^ (key >> 14);
-  key = ((key + (key << 2)) + (key << 4)) & mask;
-  key = key ^ (key >> 28);
-  key = (key + (key << 31)) & mask;
-  return key;
-}
 
 __device__ __forceinline__ unsigned base_at(const unsigned char* __restrict__ row,
                                             int i) {
@@ -172,15 +135,10 @@ __global__ void count_packed_kernel(int* __restrict__ cov,
     const int e = min(s + per, len);
     if (s >= e) continue;
     u64 fwd = 0, rev = 0;
-    for (int i = max(0, s - (k - 1)); i < s; ++i) {
-      const unsigned c = base_at(row, i);
-      fwd = ((fwd << 2) | c) & kmask;
-      rev = (rev >> 2) | ((u64)(3u ^ c) << top);
-    }
+    for (int i = max(0, s - (k - 1)); i < s; ++i)
+      roll(fwd, rev, base_at(row, i), kmask, top);
     for (int i = s; i < e; ++i) {
-      const unsigned c = base_at(row, i);
-      fwd = ((fwd << 2) | c) & kmask;
-      rev = (rev >> 2) | ((u64)(3u ^ c) << top);
+      roll(fwd, rev, base_at(row, i), kmask, top);
       if (i < k - 1 || fwd == rev) continue;  // incomplete, or a palindrome
       const u64 v = (hash64(fwd < rev ? fwd : rev, kmask) << 8) | (u64)k;
       const long idx = find_key(keys, dir, bits, shift, v);

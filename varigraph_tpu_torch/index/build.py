@@ -13,9 +13,11 @@ SURVEY.md section 3.1):
                                       _CBF_SHARD_MIN cells when it has
                                       several; otherwise above
                                       _CBF_DEVICE_MAX cells an exact count
-                                      through the join kernel csrc/join.cu)
-  5. context sketch + CBF counts     (device), per-node aggregation and the
-                                      global merge (host numpy, copied)
+                                      through csrc/sketch.cu's count_codes)
+  5. context sketch + CBF counts     (device: csrc/sketch.cu's context
+                                      sketch, the dedup in torch),
+                                      per-node aggregation and the global
+                                      merge (host numpy, copied)
   6. graph2node                      (node k-mers -> table indices)
 
 Semantics preserved from reference src/construct_index.cpp:592-699,1125-1248:
@@ -48,16 +50,15 @@ from ..config import VarigraphConfig
 from ..io.fasta import _open_text, read_fasta
 from ..ops.cbf import CountingBloomFilter, ShardedCBF, cbf_size
 from ..ops.exact_count import ExactGenomeCounter
-from ..ops.kmer import pack_seqs, sketch_codes
+from ..ops.sketch import encode_contexts
+from ..ops.sketch_cuda import sketch_contexts
 from ..ops.sketch_ref import encode_bases_np
-from ..ops.table import KmerTable
+from ..ops.table import _ORDER_FLIP, KmerTable
 from ..parallel.mesh import Mesh, make_mesh
 from ..utils.log import log
 from .graph import GenomeGraph, build_graph_from_vcf, find_node_up_down_seq
 from .structs import GraphIndex
 
-# context batch: cap padded batch area (rows x padded len)
-_CTX_BATCH_AREA = 8 * 1024 * 1024
 # From this many filter cells a mesh of several devices splits the filter
 # over its devices by position range (ops/cbf.ShardedCBF) -- the JAX
 # package's default; tests set it in-process to force the regime.
@@ -111,40 +112,31 @@ def make_genome_cbf(fasta_map: dict[str, str], genome_size: int, k: int,
     return bf
 
 
+def context_csr(contexts: list[str], k: int,
+                device: torch.device | str = "cpu"
+                ) -> tuple[torch.Tensor, torch.Tensor, float]:
+    """Sketch the distinct contexts on ``device``: (values int64, starts
+    int64 [C + 1], both on device, and the host seconds spent encoding).
+    Context c's unique k-mers, in unsigned order, are values[starts[c]:
+    starts[c + 1]] (``ops/sketch_cuda.sketch_contexts``).  The contexts are
+    encoded once on the host into one code buffer with offsets, unpadded."""
+    log(f"Sketching {len(contexts)} distinct contexts on device ...")
+    t0 = time.perf_counter()
+    codes, offsets = encode_contexts(contexts)
+    encode_s = time.perf_counter() - t0
+    values, starts = sketch_contexts(torch.from_numpy(codes).to(device),
+                                     torch.from_numpy(offsets).to(device), k)
+    return values, starts, encode_s
+
+
 def _sketch_contexts(contexts: list[str], k: int,
                      device: torch.device | str = "cpu") -> list[np.ndarray]:
-    """Sketch many context strings on ``device``; returns per-context unique
-    k-mer arrays (uint64, in unsigned order).
-
-    Contexts go in order of length, in batches of at most _CTX_BATCH_AREA
-    padded bases, each padded to its longest context (code 4, which never
-    emits).  Progress is logged every ~5% (reference
-    construct_index.cpp:687-689)."""
-    order = sorted(range(len(contexts)), key=lambda i: len(contexts[i]))
-    results: list[np.ndarray | None] = [None] * len(contexts)
-    log(f"Sketching {len(contexts)} distinct contexts on device ...")
-    done = 0
-    next_pct = 5
-    i = 0
-    while i < len(order):
-        j = i + 1  # contexts are length-sorted: the last one sets the width
-        while (j < len(order)
-               and (j - i + 1) * len(contexts[order[j]]) <= _CTX_BATCH_AREA):
-            j += 1
-        batch_idx = order[i:j]
-        i = j
-        codes = pack_seqs([contexts[b] for b in batch_idx])
-        values, emit = sketch_codes(torch.from_numpy(codes).to(device), k)
-        values = values.cpu().numpy().view(np.uint64)
-        emit = emit.cpu().numpy()
-        for row, b in enumerate(batch_idx):
-            results[b] = np.unique(values[row][emit[row]])
-        done += len(batch_idx)
-        pct = 100 * done // max(len(contexts), 1)
-        if pct >= next_pct:
-            log(f"Indexing progress: {pct}%")
-            next_pct = (pct // 5 + 1) * 5
-    return results  # type: ignore[return-value]
+    """Per-context unique k-mer arrays (uint64, in unsigned order): a view
+    of ``context_csr``."""
+    values, starts, _ = context_csr(contexts, k, device)
+    v = values.cpu().numpy().view(np.uint64)
+    s = starts.cpu().numpy()
+    return [v[a:b] for a, b in zip(s[:-1], s[1:])]
 
 
 def _walk_task_range(args):
@@ -363,26 +355,23 @@ def index_graph(walked, bf, k: int, nhap: int, use_unique_kmers: bool,
         log(f"aggregation: {label} ({t - _t0:.2f}s)", func="index_graph")
         _t0 = t
 
-    uniq_ctx_kmers = _sketch_contexts(contexts, k, device)
-    # CSR view over the per-context unique-k-mer arrays (all_kmers is the
-    # flat concatenation in context order; ctx_starts its offsets)
-    ctx_len = np.fromiter(
-        (len(a) for a in uniq_ctx_kmers), np.int64, len(uniq_ctx_kmers)
-    ) if uniq_ctx_kmers else np.empty(0, np.int64)
-    ctx_starts = np.zeros(len(ctx_len) + 1, np.int64)
-    np.cumsum(ctx_len, out=ctx_starts[1:])
-    all_kmers = (
-        np.concatenate([c for c in uniq_ctx_kmers if len(c)])
-        if ctx_starts[-1]
-        else np.empty(0, np.uint64)
-    )
-    # return_inverse replaces the former 60-s+ searchsorted of every entry:
-    # frequencies land context-aligned for free out of the dedup sort
-    if len(all_kmers):
-        uniq_kmers, inverse = np.unique(all_kmers, return_inverse=True)
-    else:
-        uniq_kmers, inverse = np.empty(0, np.uint64), np.empty(0, np.int64)
-    _step(f"context sketch + dedup ({len(uniq_kmers) / 1e6:.1f}M uniq k-mers)")
+    # the CSR of the per-context unique k-mers (all_kmers is their flat
+    # concatenation in context order; ctx_starts its offsets), then the
+    # global dedup on the same device, in unsigned order (sign bit
+    # flipped): return_inverse lands the frequencies context-aligned out
+    # of the dedup sort, with no search of every entry
+    values, starts, encode_s = context_csr(contexts, k, device)
+    uniq, inverse = torch.unique(values ^ _ORDER_FLIP, sorted=True,
+                                 return_inverse=True)
+    all_kmers = values.cpu().numpy().view(np.uint64)
+    ctx_starts = starts.cpu().numpy()
+    ctx_len = np.diff(ctx_starts)
+    uniq_kmers = (uniq ^ _ORDER_FLIP).cpu().numpy().view(np.uint64)
+    inverse = inverse.cpu().numpy()
+    del values, starts, uniq
+    _step(f"context sketch + dedup ({len(uniq_kmers) / 1e6:.1f}M uniq k-mers "
+          f"of {len(all_kmers) / 1e6:.1f}M context k-mers; host encode "
+          f"{encode_s:.2f}s)")
     uniq_counts = bf.count(uniq_kmers) if len(uniq_kmers) else np.empty(0, np.uint8)
     ctx_fre = uniq_counts[inverse].astype(np.int64)  # aligned with all_kmers
     _step("genome k-mer frequencies")

@@ -21,6 +21,7 @@ from __future__ import annotations
 import io
 import struct
 import sys
+import time
 
 import numpy as np
 import torch
@@ -122,8 +123,10 @@ def load_reference_graph_bin(path: str, device: torch.device | str = "cpu",
                              threads: int = 1) -> GraphIndex:
     """Read a graph.bin; the table's keys and coverage go to ``device``,
     where the local haplotype bits are rebuilt (``rebuild_local_bits``;
-    ``threads`` processes walk the contexts)."""
+    ``threads`` processes walk the contexts).  Logs the load's seconds
+    split into the parse, the walk, the sketch and the bit fill."""
     log(f"Reference-format Genome Graph index loaded from file: {path}")
+    t0 = time.perf_counter()
     with open(path, "rb") as fh:
         r = _Reader(fh.read())
     try:
@@ -131,7 +134,10 @@ def load_reference_graph_bin(path: str, device: torch.device | str = "cpu",
     except (struct.error, IndexError, UnicodeDecodeError, KeyError) as e:
         raise ValueError(f"'{path}' is neither a .vgt (zip) nor a complete "
                          f"reference graph.bin ({type(e).__name__}: {e})") from e
-    rebuild_local_bits(gi, device, threads)
+    parse_s = time.perf_counter() - t0
+    walk_s, sketch_s, fill_s = rebuild_local_bits(gi, device, threads)
+    log(f"graph.bin load timing: parse {parse_s:.2f}s walk {walk_s:.2f}s "
+        f"sketch {sketch_s:.2f}s bit fill {fill_s:.2f}s")
     log(f"Total number of bases in the Genome Graph: {gi.graph_base_num}")
     log(f"Total number of k-mers present in the Genome Graph: {gi.table.size}")
     log(f"Total number of haplotypes present in the Genome Graph: {gi.nhap}")
@@ -321,7 +327,7 @@ def _words_to_bytes(words: np.ndarray) -> np.ndarray:
 
 
 def rebuild_local_bits(gi: GraphIndex, device: torch.device | str = "cpu",
-                       threads: int = 1) -> None:
+                       threads: int = 1) -> tuple[float, float, float]:
     """Rebuild every variant node's local haplotype bitmask: bit h of a
     k-mer's row is set when haplotype h's context at the node holds it (the
     computation the reference performs during genotyping,
@@ -330,8 +336,10 @@ def rebuild_local_bits(gi: GraphIndex, device: torch.device | str = "cpu",
     The JAX function walks every (node, haplotype) context.  Here the
     construct path's walk (build.collect_contexts) walks each distinct
     context once and hands back the haplotypes that share it, so its bits
-    are the same; the distinct contexts are sketched on ``device``."""
-    from .build import _sketch_contexts, collect_contexts
+    are the same; the distinct contexts are sketched on ``device``
+    (``build.context_csr``).  Returns the seconds of the walk, the sketch and
+    the bit fill."""
+    from .build import collect_contexts, context_csr
 
     k = gi.kmer_len
     nbytes = (gi.nhap + 7) // 8
@@ -344,12 +352,18 @@ def rebuild_local_bits(gi: GraphIndex, device: torch.device | str = "cpu",
             if node.is_variant:
                 node.local_bits = np.zeros((len(node.kmer_hashes), nbytes),
                                            np.uint8)
+    t0 = time.perf_counter()
     _, contexts, groups = collect_contexts(gi.graph, k, gi.vcf_ploidy, False,
                                            threads=threads, tasks=tasks)
     g_task, g_cid, g_bits, _, _ = groups
-    ctx_kmers = _sketch_contexts(contexts, k, device)
+    t1 = time.perf_counter()
+    values, starts, _ = context_csr(contexts, k, device)
+    values = values.cpu().numpy().view(np.uint64)
+    starts = starts.cpu().numpy()
+    t2 = time.perf_counter()
     for t, cid, bits in zip(g_task, g_cid, g_bits):
         node = tasks[t][2]
-        present = np.isin(node.kmer_hashes, ctx_kmers[cid])
+        present = np.isin(node.kmer_hashes, values[starts[cid]:starts[cid + 1]])
         w = min(nbytes, len(bits))
         node.local_bits[present, :w] |= bits[:w]
+    return t1 - t0, t2 - t1, time.perf_counter() - t2

@@ -4,8 +4,9 @@
 place: cov[i] += #{j : mask[j] and queries[j] == keys[i]}.  It replaces the
 Pallas banded merge-join of ``varigraph_tpu/ops/join_pallas.py`` and the
 two-sort joins ``count_merge`` and ``count_merge_super`` of
-``varigraph_tpu/ops/table.py``; the port runs it for construct's exact genome
-count.
+``varigraph_tpu/ops/table.py``.  No main path launches it: construct's exact
+genome count sketches and looks up in one kernel
+(``ops/sketch_cuda.count_codes_``).
 
 ``count_packed_(cov, keys, directory, packed, k)`` adds the canonical k-mers
 of a packed read batch (``ops/kmer.unpack_2bit``'s format) to ``cov`` in

@@ -37,21 +37,6 @@ def encode_bases(seq: str | bytes) -> np.ndarray:
     return encode_bases_np(seq)
 
 
-def pack_seqs(seqs: list[bytes | str], max_len: int | None = None) -> np.ndarray:
-    """Pack variable-length sequences into a [B, L] uint8 code matrix.
-
-    Padding uses code 4 (ambiguous), which never emits and resets the run
-    counter, so rows are fully independent.
-    """
-    if max_len is None:
-        max_len = max((len(s) for s in seqs), default=1)
-    out = np.full((len(seqs), max_len), 4, dtype=np.uint8)
-    for i, s in enumerate(seqs):
-        codes = encode_bases_np(s)[:max_len]
-        out[i, : len(codes)] = codes
-    return out
-
-
 def hash64(key: torch.Tensor, mask: int) -> torch.Tensor:
     """Invertible integer finalizer (reference include/hash64.hpp:5-14) on
     int64 tensors holding values below 2^56."""
