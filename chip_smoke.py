@@ -7,8 +7,9 @@ Needs one CUDA card, nvcc (under $CUDA_HOME or /usr/local/cuda) and this
 checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the kernel builds (csrc/join.cu, csrc/cbf.cu, csrc/fb.cu and
-     csrc/sketch.cu, one nvcc each, started together), timed;
+  2. the kernel builds (csrc/join.cu, csrc/cbf.cu, csrc/fb.cu,
+     csrc/sketch.cu and csrc/emit.cu, one nvcc each, started together),
+     timed;
   3. the counting kernels of csrc/join.cu against their plain torch
      versions on the card, exactly equal on edge cases, each at its table's
      own key directory and at skewed ones: the join (count_join_) and the
@@ -23,9 +24,12 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      "--device", "cuda"])`` on the committed 2 Mb graph
      (tests/fixtures/slice2m) with 20x reads simulated from sample S1's two
      haplotypes; count_packed must have launched once per batch,
-     forward_backward at least once and the plain ``_scan`` never on the
-     card, and S1's genotypes must agree with the VCF's truth at >= 99% of
-     the sites;
+     emissions and forward_backward at least once, and neither the torch
+     emission body nor the plain ``_scan`` on the card, and S1's genotypes
+     must agree with the VCF's truth at >= 99% of the sites; the first
+     genotype of the process prints its emit seconds split into upload and
+     device, and whether libcublas is mapped into the process before and
+     after it;
   5. parity on the card: a recount with the plain count_packed gives the
      kernel's coverage exactly, and the host oracle engine (engine_np) on
      the same counts gives the same GT at every site with GPP within 2e-3;
@@ -66,7 +70,8 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      phase seconds;
  10. the reference graph.bin: the committed 2 Mb graph written as graph.bin,
      ``genotype --load-graph graph.bin --device cuda`` through the CLI
-     (count_packed once per batch, S1 must meet the 99% GT gate), the loaded
+     (count_packed once per batch, the scoring through its kernels alone,
+     S1 must meet the 99% GT gate), the loaded
      table equal
      to the .vgt's, whether the rebuilt local bits equal the construct-time
      ones, and a timed graph.bin write and load of phase 9's 100 Mb graph,
@@ -75,8 +80,10 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
  11. two processes: S1's reads split into two FASTQ files, two genotype CLI
      processes on the card joined by ``--coordinator localhost:PORT
      --num-processes 2`` (each under a timeout, both killed on failure),
-     each counting with count_packed once per batch of its own, whose VCF
-     must be byte-identical to one process's on the same files;
+     each counting with count_packed once per batch of its own and
+     launching emissions, whose VCF must be byte-identical to one
+     process's on the same files (that one process's scoring through its
+     kernels alone);
  12. the mesh: over the card's devices, or 2 logical shards of cuda:0 when
      there is one card.  Phase 9's 100 Mb genome filter built over 2 shards
      (cbf_add_codes on each) equals phase 9's one-device filter byte for
@@ -84,8 +91,9 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      equals its plain version; construct of the 2 Mb
      fixture with the shard threshold forced equals the committed graph.vgt
      in every member; genotype over the mesh (replicated counting,
-     count_packed once per batch over the devices, window-sharded
-     forward/backward through the kernel on each shard) gives phase 4's
+     count_packed once per batch over the devices, the emissions kernel,
+     window-sharded forward/backward through the kernel on each shard, no
+     torch emission body or plain ``_scan`` on the card) gives phase 4's
      coverage and VCF; and the per-shard kernels are timed at 2^29 cells per
      shard;
  13. the forward/backward kernel (csrc/fb.cu) against the plain ``_scan``
@@ -112,9 +120,11 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      files (tools/gen_big.py's apply_hap and write_reads from phase 9's
      haplotypes) through the CLI on the card: phase and engine timings,
      launches, S1's GT agreement with the generator's truth (reported, not
-     a gate); then ``genotype_torch`` on the saved counts through the kernel
-     and with the plain forward/backward routed in must give the same GT,
-     UK and NAK at every site, GPP within 2e-3;
+     a gate), the scoring through its kernels alone; then ``genotype_torch``
+     on the saved counts through the kernels, with the plain
+     forward/backward routed in and with the plain emissions routed in must
+     give the same GT, UK and NAK at every site, GPP within 2e-3 (the
+     group's emission inputs are kept for phase 16);
  15. the sketch kernels of csrc/sketch.cu against their plain torch
      versions on the card, exactly equal: count_codes on N-bearing genomes
      (Ns at row edges, (AT)n, a poly-A run counting past 255, keys with bit
@@ -127,14 +137,24 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      sketch, then the join kernel) and the plain version, and the context
      sketch on phase 9's distinct contexts, beside its dedup alone and the
      plain version (the old padded torch batches and per-context
-     np.unique), each with its bound.
+     np.unique), each with its bound;
+ 16. the emissions kernel (csrc/emit.cu) against its plain torch version on
+     the card, at rtol 4e-6 on finite values with -inf and NaN at the same
+     places, bit-identical over two runs: the edge cases of
+     tests/test_torch_emit.py; phase 14's 100 Mb group (its real inputs,
+     G = 100, N = 543, S = 120), with window 37 alone bit-identical to its
+     row of the group; synthetic groups at S = 465 (-n 30), at P = 4 and at
+     W = 2 (40 used haplotypes); each timed (median of 7, the plain version
+     too) with its bound.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
 the counting kernels, at m = 2^30 for the filter kernels, at the 50 Mb
 chromosome and phase 9's table for count_codes, at phase 9's contexts for
-the context sketch, and at phase 13's
+the context sketch, at phase 14's group for the emissions (with the
+S = 465, P = 4 and W = 2 groups' figures under ``s465``, ``p4``, ``w2``),
+and at phase 13's
 S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
 and dense-bound figures and the S = 465 group's under ``s465``: the key add
 and the count at one batch, with
@@ -156,6 +176,7 @@ import concurrent.futures
 import contextlib
 import gzip
 import io
+import itertools
 import json
 import math
 import os
@@ -186,13 +207,15 @@ from varigraph_tpu_torch.genotype.pipeline import load_counts
 from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
-from varigraph_tpu_torch.ops import cbf_cuda, fb_cuda, join_cuda, sketch_cuda
+from varigraph_tpu_torch.ops import (cbf_cuda, emit_cuda, fb_cuda, join_cuda,
+                                     sketch_cuda)
 from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
                                          cbf_positions, genome_row_codes,
                                          genome_rows, make_seeds)
 from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
+from varigraph_tpu_torch.ops.emit import emissions_plain
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.kmer import (pack_codes_np, sketch_codes,
                                           sketch_packed)
@@ -209,6 +232,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import gen_big  # noqa: E402
+import test_torch_emit  # noqa: E402
 from data_gen import apply_haplotype, make_reads, write_fastq  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "slice2m")
@@ -253,6 +277,15 @@ FB_MIXED_W, FB_MIXED_N = 4, 512
 FB_MAX_N = 12                  # nodes of the case at the most states a launch takes
 # genotype at full width (phase 14): S1's reads of phase 9's genome
 BIG_DEPTH, BIG_READ_FILES = 10.0, 2
+# the emissions kernel (phase 16): finite values within rtol 4e-6 of plain
+# (float32 sums of up to 128 terms in another order), -inf and NaN at the
+# same places; synthetic groups of EMIT_G windows of EMIT_N nodes (the 100
+# Mb group's node count); the plain version in chunks of at most
+# EMIT_PLAIN_BYTES a [rows, K, S] intermediate; the window of the split check
+EMIT_RTOL = 4e-6
+EMIT_G, EMIT_N = 32, 543
+EMIT_PLAIN_BYTES = 1 << 28
+EMIT_ROW = 37
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32
 # at 64 lanes an SM, a quarter of the data sheet's 67 TFLOP/s float32 (128
@@ -690,32 +723,39 @@ def phase_timings(log_text: str) -> dict[str, float]:
         if not m:
             fail(f"no '{name}' phase timing in the log")
         t[name] = float(m.group(1))
-    m = re.search(r"engine timing: prep ([\d.]+)s emit ([\d.]+)s fb ([\d.]+)s "
-                  r"posterior ([\d.]+)s \(non-overlapped\); emit upload "
-                  r"([\d.]+)s emit device ([\d.]+)s", log_text)
+    m = re.search(r"engine timing: prep ([\d.]+)s assemble ([\d.]+)s emit "
+                  r"([\d.]+)s fb ([\d.]+)s posterior ([\d.]+)s "
+                  r"\(non-overlapped\); emit upload ([\d.]+)s emit device "
+                  r"([\d.]+)s", log_text)
     if not m:
         fail("no engine timing in the log")
-    for i, name in enumerate(("prep", "emit", "fb", "posterior", "emit upload",
-                              "emit device")):
+    for i, name in enumerate(("prep", "assemble", "emit", "fb", "posterior",
+                              "emit upload", "emit device")):
         t[name] = float(m.group(i + 1))
     return t
 
 
 @contextlib.contextmanager
-def counted_scans():
-    """Counts the plain ``_scan``'s calls by device type while it is open."""
+def counted_plain():
+    """Counts, by (name, device type), the calls of the plain ``_scan`` and
+    of the torch emission body ``_emissions_body`` while it is open."""
     calls = collections.Counter()
-    saved = engine_torch_mod._scan
+    saved = {name: getattr(engine_torch_mod, name)
+             for name in ("_scan", "_emissions_body")}
 
-    def scan(logE, *a, **kw):
-        calls[logE.device.type] += 1
-        return saved(logE, *a, **kw)
+    def counted(name, fn):
+        def call(first, *a, **kw):
+            calls[name, first.device.type] += 1
+            return fn(first, *a, **kw)
+        return call
 
-    engine_torch_mod._scan = scan
+    for name, fn in saved.items():
+        setattr(engine_torch_mod, name, counted(name, fn))
     try:
         yield calls
     finally:
-        engine_torch_mod._scan = saved
+        for name, fn in saved.items():
+            setattr(engine_torch_mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -746,15 +786,24 @@ def counted_torch_sketches():
             setattr(mod, name, fn)
 
 
-def check_fb_on_card(launches, scans, where: str) -> None:
-    """Fails unless the run's forward/backward launched the kernel and never
-    ran the plain ``_scan`` on the card."""
-    print(f"  {where}: forward_backward launches "
-          f"{launches.get('forward_backward', 0)}, plain _scan calls on the "
-          f"card {scans['cuda']}")
-    if launches.get("forward_backward", 0) < 1 or scans["cuda"]:
-        fail(f"{where}: the forward/backward did not go through its kernel "
-             "alone")
+def cublas_mapped() -> bool:
+    """Whether a cuBLAS library is mapped into this process."""
+    with open("/proc/self/maps") as fh:
+        return "libcublas" in fh.read()
+
+
+def check_scoring_on_card(launches, calls, where: str) -> None:
+    """Fails unless the run's emissions and forward/backward launched their
+    kernels and never ran the torch emission body or the plain ``_scan`` on
+    the card."""
+    print(f"  {where}: emissions launches {launches.get('emissions', 0)}, "
+          f"forward_backward launches {launches.get('forward_backward', 0)}; "
+          f"on the card, torch emission body calls "
+          f"{calls['_emissions_body', 'cuda']}, plain _scan calls "
+          f"{calls['_scan', 'cuda']}")
+    if (launches.get("emissions", 0) < 1 or launches.get("forward_backward", 0) < 1
+            or calls["_emissions_body", "cuda"] or calls["_scan", "cuda"]):
+        fail(f"{where}: the scoring did not go through its kernels alone")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1361,13 +1410,15 @@ def phase_interop(device, work: str, cfg_path: str, big_gi, big_vgt: str):
     print(f"  wrote the 2 Mb graph as graph.bin, "
           f"{os.path.getsize(bin_path) / 1e6:.1f} MB")
     LAUNCHES.clear()
-    t0 = time.perf_counter()
-    vcf, log_text = run_main_path(device.type, work, cfg_path,
-                                  os.path.join(work, "counts_bin.npz"),
-                                  graph=bin_path, out_name="out_bin")
-    wall = time.perf_counter() - t0
+    with counted_plain() as calls:
+        t0 = time.perf_counter()
+        vcf, log_text = run_main_path(device.type, work, cfg_path,
+                                      os.path.join(work, "counts_bin.npz"),
+                                      graph=bin_path, out_name="out_bin")
+        wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     check_counted_per_batch(log_text, launches, "genotype from graph.bin")
+    check_scoring_on_card(launches, calls, "genotype from graph.bin")
     agree, sites = gt_agreement(vcf)
     print(f"  genotype --load-graph graph.bin: launches {launches}; S1 GT "
           f"agrees with the truth at {agree}/{sites} sites "
@@ -1447,11 +1498,13 @@ def phase_multiprocess(device, work: str, fq: str):
         fh.write("S1 " + " ".join(fqs) + "\n")
     graph = os.path.join(FIXTURE, "graph.vgt")
     LAUNCHES.clear()
-    vcf1, log_text = run_main_path(device.type, work, cfg2,
-                                   os.path.join(work, "c1.npz"),
-                                   out_name="out_1proc")
+    with counted_plain() as calls:
+        vcf1, log_text = run_main_path(device.type, work, cfg2,
+                                       os.path.join(work, "c1.npz"),
+                                       out_name="out_1proc")
     launches = dict(LAUNCHES)
     check_counted_per_batch(log_text, launches, "the one-process run")
+    check_scoring_on_card(launches, calls, "the one-process run")
 
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
@@ -1486,8 +1539,10 @@ def phase_multiprocess(device, work: str, fq: str):
               f"table on {tbl.group(1) if tbl else '?'}")
         if not m:
             fail(f"process {i} logged no kernel launches")
-        check_counted_per_batch(text, ast.literal_eval(m.group(1)),
-                                f"process {i} of 2")
+        proc_launches = ast.literal_eval(m.group(1))
+        check_counted_per_batch(text, proc_launches, f"process {i} of 2")
+        if not proc_launches.get("emissions"):
+            fail(f"process {i} of 2 did not launch the emissions kernel")
         if ("merged counts from 2 hosts" not in text
                 or "merged scoring results from 2 hosts" not in text):
             fail(f"process {i} did not merge with its peer")
@@ -1662,8 +1717,9 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
         # genotype over the mesh: replicated counting, window-sharded fb
         LAUNCHES.clear()
         mesh_counts = os.path.join(work, "counts_mesh.npz")
-        vcf, log_text = run_main_path(device.type, work, cfg_path,
-                                      mesh_counts, out_name="out_mesh")
+        with counted_plain() as calls:
+            vcf, log_text = run_main_path(device.type, work, cfg_path,
+                                          mesh_counts, out_name="out_mesh")
         launches.update(LAUNCHES)
     finally:
         (build_mod._CBF_SHARD_MIN, build_mod.ShardedCBF, build_mod.make_mesh,
@@ -1675,6 +1731,7 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
                     and int(a["read_base"]) == int(b["read_base"]))
     same_vcf = _vcf_bytes(vcf) == _vcf_bytes(vcf4)
     check_counted_per_batch(log_text, LAUNCHES, "genotype over the mesh")
+    check_scoring_on_card(LAUNCHES, calls, "genotype over the mesh")
     if LAUNCHES["forward_backward"] < mesh.size:
         fail("genotype over the mesh did not launch forward_backward on "
              "every device")
@@ -1964,9 +2021,10 @@ def phase_fb(device) -> tuple[dict, dict, float]:
 # ---------------------------------------------------------------- phase 14
 
 def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
-    """Genotype S1 on the 100 Mb graph through the CLI, then the kernel
-    against the plain forward/backward in-process on the saved counts;
-    returns the CLI run's launches."""
+    """Genotype S1 on the 100 Mb graph through the CLI, then in-process on
+    the saved counts the kernels against the plain forward/backward and
+    against the plain emissions; returns (the CLI run's launches, the
+    in-process group's emission arguments)."""
     fqs = [os.path.join(work, f"big_S1_{i}.fq.gz") for i in range(BIG_READ_FILES)]
     t0 = time.perf_counter()
     n_reads = gen_big.write_reads(fqs, haps, BIG_DEPTH,
@@ -1978,14 +2036,14 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         fh.write("S1 " + " ".join(fqs) + "\n")
     counts = os.path.join(work, "big_counts.npz")
     LAUNCHES.clear()
-    with counted_scans() as scans:
+    with counted_plain() as calls:
         t0 = time.perf_counter()
         vcf, log_text = run_main_path("cuda", work, cfg_path, counts,
                                       graph=big_vgt, out_name="out_big")
         wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     check_counted_per_batch(log_text, launches, f"the {BIG_MB} Mb genotype")
-    check_fb_on_card(launches, scans, f"the {BIG_MB} Mb genotype")
+    check_scoring_on_card(launches, calls, f"the {BIG_MB} Mb genotype")
     print(f"  launches {launches}")
     print("  phase timings:")
     print_timings(phase_timings(log_text), wall)
@@ -2001,43 +2059,63 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         gi.table.cov_u8(), gi.table.freq_np(), gi.table.hap_words_np(),
         gi.nhap, gi.vcf_ploidy, cfg.sample_ploidy, read_base / gi.genome_size,
         cfg.use_depth)
-    shapes = []
-    saved = engine_torch_mod._forward_backward
+    shapes, groups = [], []
+    saved = engine_torch_mod._forward_backward, engine_torch_mod.emissions_
 
-    def recorded(logE, *a):
+    def recorded_fb(logE, *a):
         shapes.append(tuple(logE.shape))
         return fb_cuda.forward_backward(logE, *a)
 
+    def recorded_emit(out, *a):
+        groups.append(a)
+        emit_cuda.emissions_(out, *a)
+
+    def run():
+        t0 = time.perf_counter()
+        res = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
+        return res, time.perf_counter() - t0
+
     try:
-        engine_torch_mod._forward_backward = recorded
-        t0 = time.perf_counter()
-        res_k = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
-        t_k = time.perf_counter() - t0
+        engine_torch_mod._forward_backward = recorded_fb
+        engine_torch_mod.emissions_ = recorded_emit
+        res_k, t_k = run()
+        engine_torch_mod.emissions_ = saved[1]
         engine_torch_mod._forward_backward = engine_torch_mod._forward_backward_plain
-        t0 = time.perf_counter()
-        res_p = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
-        t_p = time.perf_counter() - t0
+        res_p, t_p = run()
+        engine_torch_mod._forward_backward = saved[0]
+        engine_torch_mod.emissions_ = plain_emissions_chunked
+        res_e, t_e = run()
     finally:
-        engine_torch_mod._forward_backward = saved
-    if set(res_k) != set(res_p) or not res_k:
-        fail("the kernel and the plain forward/backward scored different sites")
+        engine_torch_mod._forward_backward, engine_torch_mod.emissions_ = saved
     node_at = {(c, n.start): n for c in gi.graph.nodes for n in gi.graph.nodes[c]}
 
     def gt(rec, key):
         return sorted(int(node_at[key].hap_gt[h]) for h in rec.hap_vec)
 
-    mism = sum(gt(res_k[k], k) != gt(res_p[k], k) or res_k[k].uk != res_p[k].uk
-               or res_k[k].kmer_num_vec != res_p[k].kmer_num_vec for k in res_k)
-    gpp = max(abs(res_k[k].probability - res_p[k].probability) for k in res_k)
+    def differ(other, what):
+        if set(res_k) != set(other) or not res_k:
+            fail(f"the kernels and the plain {what} scored different sites")
+        mism = sum(gt(res_k[k], k) != gt(other[k], k) or res_k[k].uk != other[k].uk
+                   or res_k[k].kmer_num_vec != other[k].kmer_num_vec
+                   for k in res_k)
+        gpp = max(abs(res_k[k].probability - other[k].probability) for k in res_k)
+        return mism, gpp
+
+    (mism, gpp), (mism_e, gpp_e) = differ(res_p, "forward/backward"), differ(
+        res_e, "emissions")
     print(f"  genotype_torch on the saved counts, {len(res_k)} sites over "
-          f"groups (W, N, S) {shapes}: the kernel {t_k:.2f} s, the plain "
-          f"forward/backward routed in {t_p:.2f} s (host clock); {mism} GT/UK/NAK "
-          f"mismatches, max |GPP diff| {gpp:.3g}")
+          f"groups (W, N, S) {shapes}: the kernels {t_k:.2f} s, the plain "
+          f"forward/backward routed in {t_p:.2f} s, the plain emissions routed "
+          f"in {t_e:.2f} s (host clock); against the plain forward/backward "
+          f"{mism} GT/UK/NAK mismatches, max |GPP diff| {gpp:.3g}; against "
+          f"the plain emissions {mism_e}, {gpp_e:.3g}")
     if not shapes or any(s[2] != 120 for s in shapes):
         fail(f"the {BIG_MB} Mb genotype did not score at S = 120")
     if mism or gpp > GPP_TOL:
         fail("the kernel's calls differ from the plain forward/backward's")
-    return launches
+    if mism_e or gpp_e > GPP_TOL:
+        fail("the emissions kernel's calls differ from the plain emissions'")
+    return launches, groups[0]
 
 
 # ---------------------------------------------------------------- phase 15
@@ -2275,6 +2353,154 @@ def phase_sketch(device, tables: dict[str, torch.Tensor], contexts: list[str]):
     return times, ctx, max(err, e), ctx_err
 
 
+# ---------------------------------------------------------------- phase 16
+
+def plain_emissions_chunked(out, c, *rest) -> None:
+    """``emissions_plain`` over the windows in chunks whose [rows, K, S]
+    float32 intermediates stay within EMIT_PLAIN_BYTES each, as the engine's
+    CPU path bounds them."""
+    G, N, S = out.shape
+    step = max(1, EMIT_PLAIN_BYTES // (N * c.shape[2] * S * 4))
+    tensors, scalars = rest[:8], rest[8:]
+    for g0 in range(0, G, step):
+        g1 = g0 + step
+        emissions_plain(out[g0:g1], c[g0:g1], *(t[g0:g1] for t in tensors),
+                        *scalars)
+
+
+def emit_bound(args) -> tuple[float, str]:
+    """(ms, what sets it): every input read once and logE written once
+    through HBM, against the state loop's operations on this run's data,
+    2P + 1 a (node, valid k-mer, valid state) -- P bit tests, P - 1 adds,
+    the table's index and the float add -- at the int32 rate."""
+    c, kmask, state_u, smask = args[0], args[3], args[7], args[8]
+    G, N, _ = c.shape
+    nbytes = sum(t.numel() * t.element_size() for t in args[:9]) + G * N * smask.shape[1] * 4
+    triples = float((kmask.sum(dim=2, dtype=torch.float64)
+                     * smask.sum(dim=1, dtype=torch.float64)[:, None]).sum())
+    return bound(nbytes, triples * (2 * state_u.shape[2] + 1))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def emit_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool]:
+    """(max |got - want| / |want| and max |got - want| over the finite
+    values, whether -inf, NaN and the finite values sit at the same
+    places)."""
+    same = all(torch.equal(fn(got), fn(want))
+               for fn in (torch.isneginf, torch.isnan, torch.isfinite))
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    d = (got - want).abs()[fin]
+    rel = torch.where(d == 0, 0.0, d / want.abs()[fin])
+    return (float(rel.max()) if d.numel() else 0.0,
+            float(d.max()) if d.numel() else 0.0, same)
+
+
+def check_emit(name: str, args, split_row: int | None = None,
+               timed: bool = True) -> dict:
+    """The kernel against the plain version on ``args`` (the wrapper's
+    arguments after out), two runs bit-identical; with ``split_row`` that
+    window alone bit-identical to its row; ``timed``: the kernel and plain
+    timed (median of TIMING_RUNS) beside the bound."""
+    c, smask = args[0], args[8]
+    shape = tuple(c.shape[:2]) + (smask.shape[1],)
+    out = torch.empty(shape, dtype=torch.float32, device=c.device)
+
+    def kernel():
+        emit_cuda.emissions_(out, *args)
+
+    kernel()
+    torch.cuda.synchronize()
+    first = out.clone()
+    want = torch.empty_like(out)
+    plain_emissions_chunked(want, *args)
+    rel, err, same = emit_diff(first, want)
+    kernel()
+    torch.cuda.synchronize()
+    same_runs = torch.equal(_bits(out), _bits(first))
+    same_row = True
+    if split_row is not None:
+        one = torch.empty((1,) + shape[1:], dtype=torch.float32, device=c.device)
+        emit_cuda.emissions_(one, *(t[split_row:split_row + 1] for t in args[:9]),
+                             *args[9:])
+        torch.cuda.synchronize()
+        same_row = torch.equal(_bits(one[0]), _bits(first[split_row]))
+    G, N, S = shape
+    res = {"G": G, "N": N, "S": S, "P": int(args[7].shape[2]),
+           "W": int(args[4].shape[3]), "max_rel_err": rel, "max_abs_err": err}
+    line = (f"  emissions {name} (G, N, S, P, W) = ({G}, {N}, {S}, {res['P']}, "
+            f"{res['W']}): kernel vs plain max rel err {rel:.3g}, max abs err "
+            f"{err:.3g}, -inf/NaN at the same places: {same}; two runs "
+            f"bit-identical: {same_runs}")
+    if split_row is not None:
+        line += f"; window {split_row} alone bit-identical to its row: {same_row}"
+    if timed:
+        res["ms"] = time_ms(kernel)
+        res["plain_ms"] = time_ms(lambda: plain_emissions_chunked(want, *args))
+        res["bound_ms"], res["bound_by"] = emit_bound(args)
+        line += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms "
+                 f"(medians of {TIMING_RUNS}), bound {res['bound_ms']:.4f} ms "
+                 f"({res['bound_by']})")
+    print(line)
+    if not (same and rel <= EMIT_RTOL and same_runs and same_row):
+        fail(f"the emissions kernel disagrees with plain on {name}, or is not "
+             "deterministic")
+    return res
+
+
+def emit_group(device, states, n_used: int, seed: int):
+    """The wrapper's arguments after out for EMIT_G windows of EMIT_N nodes,
+    each window with the states ``states`` [S, P] over n_used used
+    haplotypes: each node a prefix of 1..128 valid k-mers (as the window
+    prep packs them), coverage Poisson(10), frequencies 1-4, ref flags at
+    0.3, random hap, local and gt0 bits over the used haplotypes."""
+    rng = np.random.default_rng(seed)
+    G, N, K = EMIT_G, EMIT_N, engine_torch_mod.MAX_NODE_KMERS
+    W = -(-n_used // 32)
+    nk = rng.integers(1, K + 1, (G, N))
+    kmask = np.arange(K)[None, None, :] < nk[..., None]
+    c = rng.poisson(10.0, (G, N, K)).clip(0, 255).astype(np.uint8)
+    f = rng.integers(1, 5, (G, N, K)).astype(np.uint8)
+    flag = rng.random((G, N, K)) < 0.3
+    bits = test_torch_emit._words(rng, (G, N, K, W), n_used)
+    local = test_torch_emit._words(rng, (G, N, K, W), n_used)
+    gt0 = rng.random((G, N, 32 * W)) < 0.5
+    gt0[..., n_used:] = False
+    state_u = np.repeat(np.asarray(states, np.int32)[None], G, axis=0)
+    smask = np.ones((G, len(states)), bool)
+    arrays = [c, f, flag, kmask, bits, local, gt0, state_u, smask]
+    return (*test_torch_emit._torch(arrays, device),
+            *test_torch_emit._scalars(10.3))
+
+
+def phase_emit(device, big_group) -> dict:
+    """Phase 16; returns the 100 Mb group's numbers with the S = 465, P = 4
+    and W = 2 groups' under ``s465``, ``p4`` and ``w2`` and the worst error
+    over every case under ``max_abs_err``/``max_rel_err``."""
+    done = []
+    for name in test_torch_emit.CASES + list(test_torch_emit.LARGE):
+        arrays, scal = test_torch_emit.case_arrays(name)
+        done.append(check_emit(f"case {name}",
+                               (*test_torch_emit._torch(arrays, device), *scal),
+                               timed=False))
+    big = check_emit(f"the {BIG_MB} Mb group", big_group, split_row=EMIT_ROW)
+    pairs = [(i, j) for i in range(40) for j in range(i + 1, 40)]
+    groups = {
+        "s465": ([(i, j) for i in range(31) for j in range(i + 1, 31)], 31),
+        "p4": (list(itertools.combinations_with_replacement(range(8), 4)), 8),
+        "w2": (pairs[::6] + [(u, u) for u in range(0, 40, 8)], 40),
+    }
+    for i, (key, (states, n_used)) in enumerate(groups.items()):
+        big[key] = check_emit(f"synthetic {key}",
+                              emit_group(device, states, n_used, 160 + i))
+        done.append(big[key])
+    big["max_rel_err"] = max(r["max_rel_err"] for r in done + [big])
+    big["max_abs_err"] = max(r["max_abs_err"] for r in done + [big])
+    return big
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2301,7 +2527,7 @@ def main() -> int:
         mod.build()
         return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
 
-    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda)
+    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda, emit_cuda)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for lib, secs in pool.map(timed_build, libs):
             print(f"  built {lib} in {secs:.2f} s")
@@ -2316,15 +2542,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         cfg_path, fq = simulate_reads(work)
         counts = os.path.join(work, "counts.npz")
+        cublas_before = cublas_mapped()
         LAUNCHES.clear()
-        with counted_scans() as scans:
+        with counted_plain() as calls:
             t0 = time.perf_counter()
             vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
             wall = time.perf_counter() - t0
         vcf4 = vcf
         main_launches = collections.Counter(LAUNCHES)
         nbatches = check_counted_per_batch(log_text, LAUNCHES, "genotype")
-        check_fb_on_card(LAUNCHES, scans, "genotype")
+        check_scoring_on_card(LAUNCHES, calls, "genotype")
         m = re.search(r"\(table on (\S+)\)", log_text)
         table_dev = m.group(1) if m else "?"
         print(f"  count_packed launches {LAUNCHES['count_packed']}, batches "
@@ -2334,6 +2561,10 @@ def main() -> int:
         t = phase_timings(log_text)
         print("  phase timings (s): " + ", ".join(
             f"{k} {v:.2f}" for k, v in t.items()) + f"; CLI wall {wall:.2f}")
+        print(f"  the process's first genotype: emit {t['emit']:.3f} s (upload "
+              f"{t['emit upload']:.3f} s, device {t['emit device']:.3f} s); "
+              f"libcublas mapped into the process before it: {cublas_before}, "
+              f"after it: {cublas_mapped()}")
         agree, sites = gt_agreement(vcf)
         print(f"  S1 GT agrees with the truth at {agree}/{sites} sites "
               f"({agree / sites:.4f})")
@@ -2436,8 +2667,9 @@ def main() -> int:
         fb120, fb465, fb_err = phase_fb(device)
 
         print(f"== 14. main path: genotype of the {BIG_MB} Mb graph at S = 120")
-        main_launches.update(phase_big_genotype(device, work, big_vgt,
-                                                big_haps, big_truth))
+        big_launches, big_emit_group = phase_big_genotype(
+            device, work, big_vgt, big_haps, big_truth)
+        main_launches.update(big_launches)
         del big_haps
 
     print("== 15. the sketch kernels against plain torch (tolerance: exactly "
@@ -2447,6 +2679,12 @@ def main() -> int:
         big_contexts)
     count_codes_err = max(count_codes_err, e)
     del big_keys, large_keys, big_contexts
+
+    print("== 16. the emissions kernel against plain torch (tolerance: rtol "
+          f"{EMIT_RTOL:g} on finite values, -inf and NaN at the same places), "
+          "then timed")
+    emit = phase_emit(device, big_emit_group)
+    del big_emit_group
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
@@ -2524,6 +2762,20 @@ def main() -> int:
             "ms", "plain_ms", "plain_windows", "bound_ms", "bound_by",
             "dense_bound_ms", "fre_ms", "layout_ms", "nonzero_share",
             "modeled_wavefronts")},
+    })
+    # the 100 Mb group at S = 120; no single PyTorch call computes the
+    # emissions either
+    kernels.append({
+        "name": "emissions", "route": "cuda", "source": source.format("emit"),
+        "replaces": "varigraph_tpu/genotype/engine_jax.py:70",
+        "launches": main_launches["emissions"],
+        "max_abs_err": emit["max_abs_err"], "max_rel_err": emit["max_rel_err"],
+        "ms": emit["ms"], "plain_ms": emit["plain_ms"],
+        "bound_ms": emit["bound_ms"], "bound_by": emit["bound_by"],
+        "library_ms": None,
+        **{key: {k: emit[key][k] for k in (
+            "S", "P", "W", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_rel_err")} for key in ("s465", "p4", "w2")},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

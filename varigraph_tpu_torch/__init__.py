@@ -2,8 +2,8 @@
 
 A port of the JAX package ``varigraph_tpu`` (which stays in the repository as
 the reference it is tested against) to PyTorch, with the counting join, the
-counting Bloom filter and the HMM's forward/backward written by hand in CUDA
-for Hopper (sm_90a).  This package imports ``torch`` and never ``jax``: the host-only numpy code it shares with the JAX package is
+counting Bloom filter, the sketches, the HMM's emissions and its
+forward/backward written by hand in CUDA for Hopper (sm_90a).  This package imports ``torch`` and never ``jax``: the host-only numpy code it shares with the JAX package is
 copied, because importing any ``varigraph_tpu`` module imports jax.
 
 Ported so far, on one device:
@@ -16,8 +16,8 @@ Ported so far, on one device:
   ``genotype --load-graph G.vgt``:
   index/serialize.load_graph -> genotype/counting.count_reads (sketch and
   join in one kernel, ``csrc/join.cu``) -> genotype/coverage.estimate_hap_coverage
-  -> genotype/engine_torch.genotype_torch (the forward/backward in
-  ``csrc/fb.cu``) -> genotype/vcfout.write_vcf,
+  -> genotype/engine_torch.genotype_torch (the emissions in ``csrc/emit.cu``,
+  the forward/backward in ``csrc/fb.cu``) -> genotype/vcfout.write_vcf,
   driven by genotype/pipeline.run_genotype.
 
 Integer conventions: k-mer encodings are uint64 values carried as int64 bit

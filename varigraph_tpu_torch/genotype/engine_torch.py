@@ -4,12 +4,15 @@ Port of ``varigraph_tpu/genotype/engine_jax.py``, validated against the
 extended-precision oracle in engine_np.py (which ports reference
 src/genotype.cpp -- see its docstring for the file:line map):
 
-  * hidden states + emissions: ``_emissions_body`` produces log-emission
-    matrices [windows, nodes, states]; the reference's per-k-mer scalar
-    branches (ref-flag CI rule, local-bitmask verification, coverage
-    rescaling, Poisson/geometric scoring) are selects over
-    [windows, nodes, kmers, haps/states] tensors, and the per-state copy-count
-    sums are two contractions against the state-count matrix.
+  * hidden states + emissions: log-emission matrices [windows, nodes,
+    states].  On the card the hand kernel ``csrc/emit.cu``
+    (``ops/emit_cuda.py``) scores each (node, state) from the hap words and
+    a per-k-mer term table.  Its plain version, ``_emissions_body``, takes
+    the reference's per-k-mer scalar branches (ref-flag CI rule,
+    local-bitmask verification, coverage rescaling, Poisson/geometric
+    scoring) as selects over [windows, nodes, kmers, haps/states] tensors,
+    and the per-state copy-count sums as two contractions against the
+    state-count matrix.
   * forward/backward: ``_forward_backward`` runs the hand kernel
     ``csrc/fb.cu`` on the card (``ops/fb_cuda.py``): one CTA a window and
     direction walks the nodes.  Its plain version, ``_scan``, loops over
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ..index.structs import GraphIndex
+from ..ops.emit_cuda import emissions_
 from ..ops.fb_cuda import forward_backward
 from ..ops.table import pack_hapbits
 from ..parallel import dist
@@ -58,11 +62,16 @@ MAX_NODE_KMERS = 128
 # windows scored per round; bounds the [W, N, S] alpha/beta memory at genome
 # scale
 _WINDOW_GROUP = 256
-# padded node rows per emission call: bounds the [rows, K, S] intermediates
-# (rows*K*S*4 B per live tensor; 4096 rows at K=S=128 is ~0.27 GB)
+# the plain emissions on the CPU: padded node rows per call, bounding the
+# [rows, K, S] intermediates (rows*K*S*4 B per live tensor; 4096 rows at
+# K=S=128 is ~0.27 GB)
 _EMIT_ROWS = 4096
-# nodes per emission call inside one window that alone exceeds _EMIT_ROWS
+# nodes per plain emission call inside one window that alone exceeds
+# _EMIT_ROWS
 _NODE_CHUNK = 1024
+# the emissions kernel on the card: input bytes uploaded per launch (the
+# kernel holds no intermediate, so a group is one launch up to this)
+_EMIT_UPLOAD_BYTES = 1 << 30
 
 
 # ======================================================================
@@ -408,17 +417,6 @@ def state_overlap(states: list[list[int]]) -> np.ndarray:
                                                            dtype=np.int32)
 
 
-def state_count_matrix(state_u: np.ndarray, U: int) -> np.ndarray:
-    """[S, P] used-hap indices -> [U, S] f32 copy counts per state."""
-    S = state_u.shape[0]
-    cnt = np.zeros((U, S), np.float32)
-    for si in range(S):
-        for u in state_u[si]:
-            cnt[u, si] += 1.0
-    return cnt
-
-
-
 def _posterior_string_fallback(rec_out, prep, post, node, nak_u, cak_num_u,
                                uk: int, hap2u: dict):
     """Exact string-keyed genotype aggregation (genotype.cpp:1441-1513) for
@@ -490,11 +488,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     group is padded only to its own largest window, state count and
     used-hap count (U a multiple of 32, so hap bits pack into u32 words)."""
     device = torch.device(device) if device is not None else gi.table.device
-    # full float32 products: the alpha contraction feeds GPP, and TF32 keeps
-    # ~3 decimal digits -- too few for the 2e-3 GPP agreement with the
-    # oracle engines
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _t = {"prep": 0.0, "emit": 0.0, "fb": 0.0, "post": 0.0,
+    _t = {"prep": 0.0, "assemble": 0.0, "emit": 0.0, "fb": 0.0, "post": 0.0,
           "emit_upload": 0.0, "emit_device": 0.0}
     if host_arrays is not None:
         cov_u8, freq_np, hap_words, refflag = host_arrays
@@ -568,11 +562,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     fre_mode = cfg.transition_pro_type != "rec"
 
     def dev(arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(device)
-
-    def words(arr: np.ndarray) -> torch.Tensor:
-        """u32 words travel as int32 and widen to int64 on the device."""
-        return dev(arr.view(np.int32)).to(torch.int64) & 0xFFFFFFFF
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     # window prep runs one group ahead on a worker thread, and the host
     # posterior of a group overlaps the next group's device work
@@ -593,6 +583,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             if not group:
                 break
             fut = pool.submit(take)
+            _ta = time.perf_counter()
             G = len(group)
             N = max(len(p_.node_refs) for p_ in group)
             S = max(len(p_.states) for p_ in group)
@@ -613,7 +604,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             bits_all = np.zeros((G, N, K, Ww), np.uint32)
             local_all = np.zeros((G, N, K, Ww), np.uint32)
             gt0_all = np.zeros((G, N, U), bool)
-            sc_all = np.zeros((G, U, S), np.float32)
+            su_all = np.zeros((G, S, P), np.int32)
             for wi, prep in enumerate(group):
                 n = len(prep.node_refs)
                 s = len(prep.states)
@@ -622,8 +613,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 bits_all[wi, :n, :, : bp.shape[2]] = bp
                 local_all[wi, :n, :, : lp.shape[2]] = lp
                 gt0_all[wi, :n, : prep.gt0_u.shape[1]] = prep.gt0_u
-                sc = state_count_matrix(prep.state_u, U)
-                sc_all[wi, :, : sc.shape[1]] = sc
+                su_all[wi, :s] = prep.state_u
                 c_all[wi, :n] = prep.c
                 f_all[wi, :n] = prep.f
                 flag_all[wi, :n] = prep.flag
@@ -636,43 +626,51 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 ov_all[wi, :s, :s] = prep.overlap
                 lw_all[wi, :s] = prep.log_w
                 sm_all[wi, :s] = True
+            _t["assemble"] += time.perf_counter() - _ta
 
-            # emissions: windows (and, for a window above _EMIT_ROWS nodes,
-            # node chunks) as a batch dimension, bounding the [rows, K, S]
-            # intermediates
+            # emissions into logE through emissions_: on the card the kernel,
+            # which holds no intermediate, so a group is one launch (a window
+            # chunk a launch where the group's inputs exceed
+            # _EMIT_UPLOAD_BYTES); on the CPU the plain torch body, with
+            # windows (and, for a window above _EMIT_ROWS nodes, node chunks)
+            # as a batch dimension bounding its [rows, K, S] intermediates
             _te = time.perf_counter()
             lo_w, up_w = group[0].lower, group[0].upper  # same for all windows
             # float32 values, as the JAX engine computes them
             scalars = tuple(float(np.float32(x)) for x in (
                 hap_cov, lo_w, up_w, np.log(p), np.log(q), log_prior))
-            if N <= _EMIT_ROWS:
+            if device.type == "cuda":
+                row_bytes = N * (K * (4 + 8 * Ww) + U)
+                gc, nc = max(1, _EMIT_UPLOAD_BYTES // row_bytes), N
+            elif N <= _EMIT_ROWS:
                 gc, nc = max(1, _EMIT_ROWS // N), N
             else:
                 gc, nc = 1, _NODE_CHUNK
-            sc_d = dev(sc_all)
+            su_d = dev(su_all)
             sm_d = dev(sm_all)
             logE = torch.empty((G, N, S), dtype=torch.float32, device=device)
             # each chunk's upload and device compute are timed apart
-            # (synchronized), the evidence for an emissions kernel
+            # (synchronized)
             for g0 in range(0, G, gc):
                 g1 = g0 + gc
                 for n0 in range(0, N, nc):
                     n1 = n0 + nc
                     _tu = time.perf_counter()
-                    inputs = (
-                        dev(c_all[g0:g1, n0:n1]).to(torch.int32),
-                        dev(f_all[g0:g1, n0:n1]).to(torch.int32),
-                        dev(flag_all[g0:g1, n0:n1]),
-                        dev(kmask_all[g0:g1, n0:n1]),
-                        words(bits_all[g0:g1, n0:n1]),
-                        words(local_all[g0:g1, n0:n1]),
-                        dev(gt0_all[g0:g1, n0:n1]),
-                    )
+                    # the host dtypes: u8 counts, bool flags, u32 words as int32
+                    inputs = tuple(dev(a[g0:g1, n0:n1]) for a in (
+                        c_all, f_all, flag_all, kmask_all,
+                        bits_all.view(np.int32), local_all.view(np.int32),
+                        gt0_all))
                     _sync(device)
                     _tc = time.perf_counter()
                     _t["emit_upload"] += _tc - _tu
-                    logE[g0:g1, n0:n1] = _emissions_body(
-                        *inputs, sc_d[g0:g1], sm_d[g0:g1], *scalars)
+                    whole = n0 == 0 and n1 >= N
+                    out = (logE[g0:g1] if whole else torch.empty(
+                        inputs[0].shape[:2] + (S,), dtype=torch.float32,
+                        device=device))
+                    emissions_(out, *inputs, su_d[g0:g1], sm_d[g0:g1], *scalars)
+                    if not whole:
+                        logE[g0:g1, n0:n1] = out
                     _sync(device)
                     _t["emit_device"] += time.perf_counter() - _tc
             _t["emit"] += time.perf_counter() - _te
@@ -705,7 +703,8 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
         pool.shutdown(wait=True)
         post_pool.shutdown(wait=True)
     log(
-        "engine timing: prep {prep:.2f}s emit {emit:.2f}s fb {fb:.2f}s "
+        "engine timing: prep {prep:.2f}s assemble {assemble:.2f}s emit "
+        "{emit:.2f}s fb {fb:.2f}s "
         "posterior {post:.2f}s (non-overlapped); emit upload "
         "{emit_upload:.3f}s emit device {emit_device:.3f}s".format(**_t),
         func="genotype_torch",

@@ -41,13 +41,16 @@ def nvcc() -> str:
 class KernelLibrary:
     """One ``csrc/`` source and the shared library built from it.
 
-    declare: sets ``argtypes``/``restype`` of the library's functions."""
+    declare: sets ``argtypes``/``restype`` of the library's functions;
+    flags: nvcc flags of this source beside ``NVCC_FLAGS``."""
 
     def __init__(self, source: str, library: str,
-                 declare: Callable[[ctypes.CDLL], None]):
+                 declare: Callable[[ctypes.CDLL], None],
+                 flags: tuple[str, ...] = ()):
         self.source = os.path.join(CSRC, source)
         self.library = os.path.join(BUILD_DIR, library)
         self._declare = declare
+        self._flags = list(flags)
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
 
@@ -69,7 +72,8 @@ class KernelLibrary:
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
                 os.close(fd)
                 try:
-                    r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+                    r = subprocess.run([nvcc(), *NVCC_FLAGS, *self._flags, "-o", tmp,
+                                        self.source],
                                        capture_output=True, text=True)
                     if r.returncode != 0:
                         raise RuntimeError(f"nvcc failed to build {self.source}:\n"
