@@ -50,8 +50,8 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      the fused add over that batch's bases and over a 50 Mb chromosome,
      beside the old path (torch sketch + key add) and the plain version;
   8. the exact-count regime (``_CBF_DEVICE_MAX`` set to 1): construct must
-     count its genome through count_codes (one launch a chromosome), with
-     no join launch and no torch sketch call, and every count it fed the
+     count its genome through count_codes (one launch a chromosome, one
+     key_bitmap for the table), with no join launch and no torch sketch call, and every count it fed the
      table must equal the same counter run with the plain version on the
      card (the torch sketch, then the plain join);
   9. construct at a realistic size: a 100 Mb, 2-chromosome genome and a VCF
@@ -65,7 +65,7 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      it;
  9b. the same 100 Mb construct in the exact regime (``_CBF_DEVICE_MAX`` set
      to 1), the path of every genome above ~224 Mb on one card:
-     count_codes once a chromosome, no torch sketch call, and every count
+     count_codes once a chromosome, key_bitmap once, no torch sketch call, and every count
      equal to the plain version's on the same candidates; its genome-count
      phase seconds;
  10. the reference graph.bin: the committed 2 Mb graph written as graph.bin,
@@ -130,14 +130,18 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      (Ns at row edges, (AT)n, a poly-A run counting past 255, keys with bit
      63 set) at k = 5, 16, 27, 28, at each table's own key directory and at
      skewed ones; the context sketch on contexts of length 0, < k, k, 160
-     and thousands with N runs and (AT)n at the same k, and on contexts of
-     50,000 and 1,000,000 bases against the numpy sketch_ref; then
-     count_codes timed on phase 7's 50 Mb chromosome against phase 9's
-     table keys and phase 3's 24M-key table, beside the old path (the torch
-     sketch, then the join kernel) and the plain version, and the context
-     sketch on phase 9's distinct contexts, beside its dedup alone and the
-     plain version (the old padded torch batches and per-context
-     np.unique), each with its bound;
+     and thousands with N runs and (AT)n at the same k, and, against the
+     numpy sketch_ref, on contexts at the short route's tile and one window
+     past it and of 50,000 and 1,000,000 bases (the long route must take
+     exactly the three longest); then count_codes timed on phase 7's 50 Mb
+     chromosome against phase 9's table keys and phase 3's 24M-key table,
+     and on the 100 Mb genome's first chromosome against phase 9b's
+     candidates (whose windows hit), beside the old path (the torch sketch,
+     then the join kernel) and the plain version, with the keys hit; and the
+     context sketch on phase 9's distinct contexts, with the contexts that
+     took the long route, beside the plain version (the old padded torch
+     batches and per-context np.unique), and the count's key bitmap on both
+     tables (equal to its plain version), each with its bound;
  16. the emissions kernel (csrc/emit.cu) against its plain torch version on
      the card, at rtol 4e-6 on finite values with -inf and NaN at the same
      places, bit-identical over two runs: the edge cases of
@@ -219,8 +223,8 @@ from varigraph_tpu_torch.ops.emit import emissions_plain
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.kmer import (pack_codes_np, sketch_codes,
                                           sketch_packed)
-from varigraph_tpu_torch.ops.sketch import (count_codes_plain, dedup_contexts,
-                                            encode_contexts,
+from varigraph_tpu_torch.ops.sketch import (bitmap_bits, count_codes_plain,
+                                            encode_contexts, key_bitmap_plain,
                                             sketch_contexts_plain)
 from varigraph_tpu_torch.ops.sketch_ref import encode_bases_np, sketch_ref
 from varigraph_tpu_torch.ops.table import (count_join, count_packed,
@@ -298,9 +302,10 @@ SECTOR = 32                                    # bytes a memory transaction move
 # and a 64-bit multiply as four: per base, rolling both registers and the
 # palindrome test (7); per window, the min, the hash64 finalizer and the
 # encoding (27); per looked-up value, the bucket's shift and test, ~2 search
-# steps and the final compare (8); per (key, seed), Murmur3 x64_128 of 8
-# bytes (24 and 6 multiplies).
-ROLL_OPS, WINDOW_OPS, LOOKUP_OPS = 2 * 7, 2 * 27, 2 * 8
+# steps and the final compare (8); per value an occupancy bitmap rejects,
+# its shift, range test, word index and bit test (4); per (key, seed),
+# Murmur3 x64_128 of 8 bytes (24 and 6 multiplies).
+ROLL_OPS, WINDOW_OPS, LOOKUP_OPS, BITMAP_OPS = 2 * 7, 2 * 27, 2 * 8, 2 * 4
 MURMUR_OPS = 2 * 24 + 4 * 6
 
 
@@ -1126,16 +1131,16 @@ def time_cbf(device) -> tuple[dict[str, tuple], int]:
 
 # ----------------------------------------------------------------- phase 8
 
-def plain_count_codes(cov, keys, directory, codes, k):
+def plain_count_codes(cov, keys, directory, bitmap, codes, k):
     """The plain exact count under the kernel wrapper's signature (it needs
-    no directory)."""
+    no directory and no bitmap)."""
     count_codes_plain(cov, keys, codes, k)
 
 
 def exact_construct(ref: str, vcf: str, out: str, chroms: int, where: str):
     """Construct in the exact-count regime (``_CBF_DEVICE_MAX`` set to 1);
     fails unless the genome went through count_codes once a chromosome,
-    with no join or filter launch, the contexts through sketch_contexts,
+    behind one key bitmap, with no join or filter launch, the contexts through sketch_contexts,
     and no torch sketch call anywhere.  Returns (launches, log, wall
     seconds, the queried candidates, their counts)."""
     fed = []
@@ -1157,11 +1162,13 @@ def exact_construct(ref: str, vcf: str, out: str, chroms: int, where: str):
         build_mod._CBF_DEVICE_MAX, build_mod.ExactGenomeCounter = saved
     print(f"  {where}: launches {launches}; torch sketch calls "
           f"{dict(sketches)}; construct CLI wall {wall:.2f} s")
-    if (launches.get("count_codes") != chroms or launches.get("count_join")
+    if (launches.get("count_codes") != chroms or launches.get("key_bitmap") != 1
+            or launches.get("count_join")
             or launches.get("cbf_add") or launches.get("cbf_add_codes")
             or not launches.get("sketch_contexts") or sum(sketches.values())):
         fail(f"{where}: the exact regime did not count through count_codes "
-             "once a chromosome and sketch its contexts on the card alone")
+             "once a chromosome behind one bitmap and sketch its contexts on "
+             "the card alone")
     if len(fed) != 1:
         fail(f"{where}: the exact counter was queried {len(fed)} times, not once")
     return launches, log_text, wall, fed[0][0], fed[0][1]
@@ -1347,12 +1354,13 @@ def phase_big(device, work: str):
     return launches, err, ref, vcf, gi, out, made[0], haps, truth, contexts[0]
 
 
-def phase_big_exact(device, work: str, ref: str, vcf: str, filter_keys: int
-                    ) -> tuple[dict, int]:
+def phase_big_exact(device, work: str, ref: str, vcf: str, filter_keys: int):
     """Phase 9's construct in the exact regime; returns (launches, max abs
     difference of its counts from the plain version's on the same
-    candidates).  The exact count runs when the index queries it, so its
-    seconds are the index's "genome k-mer frequencies" step."""
+    candidates, the candidates as sorted keys on the card, the genome's
+    first chromosome's codes on the card).  The exact count runs when the
+    index queries it, so its seconds are the index's "genome k-mer
+    frequencies" step."""
     out = os.path.join(work, "big_exact.vgt")
     launches, log_text, wall, queries, counts = exact_construct(
         ref, vcf, out, BIG_CHROMS, f"the {BIG_MB} Mb exact regime")
@@ -1377,7 +1385,9 @@ def phase_big_exact(device, work: str, ref: str, vcf: str, filter_keys: int
           f"clock); {n_keys} table keys (the filter regime's: {filter_keys})")
     if err:
         fail(f"the {BIG_MB} Mb exact counts differ between count_codes and plain")
-    return launches, err
+    keys = torch.from_numpy(np.unique(queries).view(np.int64)).to(device)
+    chrom = torch.from_numpy(encode_bases_np(next(iter(genome.values())))).to(device)
+    return launches, err, keys, chrom
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2149,11 +2159,14 @@ def check_count_codes(device) -> int:
         want = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
         for codes in genome.values():
             count_codes_plain(want, keys, codes, k)
+        bm = sketch_cuda.key_bitmap(keys, bitmap_bits(keys.numel()))
+        if not torch.equal(bm, key_bitmap_plain(keys, bitmap_bits(keys.numel()))):
+            fail(f"the key bitmap kernel disagrees with plain at k={k}")
         for bits in (directory_bits(keys.numel()), *SKEWED_DIRECTORY_BITS):
             got = torch.zeros_like(want)
             for codes in genome.values():
                 sketch_cuda.count_codes_(got, keys, key_directory(keys, bits),
-                                         codes, k)
+                                         bm, codes, k)
             torch.cuda.synchronize(device)
             err = int((got - want).abs().max())
             print(f"  count_codes k={k}: {keys.numel()} keys "
@@ -2192,8 +2205,9 @@ def _to_card(arrays, device):
 
 def check_contexts(device) -> int:
     """The context kernel against plain on the edge cases at k = 5, 16, 27,
-    28, and on contexts of 50,000 and 1,000,000 bases against sketch_ref;
-    returns 0 (any difference fails)."""
+    28, and against sketch_ref on contexts at the short route's tile, one
+    window past it, and of 50,000 and 1,000,000 bases (the last three take
+    the long route); returns 0 (any difference fails)."""
     for k in PACKED_CASE_KS:
         codes, offsets = _to_card(encode_contexts(context_cases(k)), device)
         got = sketch_cuda.sketch_contexts(codes, offsets, k)
@@ -2204,15 +2218,18 @@ def check_contexts(device) -> int:
         if not same:
             fail(f"the context kernel disagrees with plain at k={k}")
     rng = np.random.default_rng(5)
+    tile = sketch_cuda.CONTEXT_TILE + LONG_CONTEXT_K - 1   # bases of a full tile
     ctxs = []
-    for n in LONG_CONTEXTS:
+    for n in (tile, tile + 1, *LONG_CONTEXTS):
         c = rng.integers(0, 4, n).astype(np.uint8)
-        c[n // 3:n // 3 + 5000] = 4
-        c[n // 2:n // 2 + 2000] = np.tile([0, 3], 1000)
-        c[n // 4:n // 4 + 3000] = 0
+        if n > 10_000:
+            c[n // 3:n // 3 + 5000] = 4
+            c[n // 2:n // 2 + 2000] = np.tile([0, 3], 1000)
+            c[n // 4:n // 4 + 3000] = 0
         c[rng.integers(0, n, 50)] = 4
         ctxs += [np.frombuffer(b"ACGTN", np.uint8)[c].tobytes().decode(), "ACGT" * 10]
     codes, offsets = _to_card(encode_contexts(ctxs), device)
+    sketch_cuda.LONG_ROUTE.clear()
     values, starts = sketch_cuda.sketch_contexts(codes, offsets, LONG_CONTEXT_K)
     v, st = values.cpu().numpy().view(np.uint64), starts.cpu().numpy()
     for i, c in enumerate(ctxs):
@@ -2223,10 +2240,14 @@ def check_contexts(device) -> int:
               f"equal to sketch_ref: {same}")
         if not same:
             fail(f"the context kernel disagrees with sketch_ref on {len(c)} bases")
+    n_long = sketch_cuda.LONG_ROUTE["contexts"]
+    print(f"  contexts on the long route: {n_long} (those of more than {tile} bases)")
+    if n_long != 3:
+        fail(f"{n_long} contexts took the long route, not the 3 longest")
     return 0
 
 
-def old_exact_path(cov, keys, directory, codes, k):
+def old_exact_path(cov, keys, directory, bitmap, codes, k):
     """The exact count before count_codes: rows of a batch through the torch
     sketch, then the join kernel on its value array."""
     rows = genome_rows(codes.numel(), k)
@@ -2252,22 +2273,51 @@ def emitted_values(codes: torch.Tensor, k: int) -> tuple[torch.Tensor, int]:
     return torch.cat(vals), bases
 
 
-def time_count_codes(device, tables: dict[str, torch.Tensor]) -> tuple[dict, int]:
+def count_codes_bound(keys, directory, bitmap, values, n_codes: int,
+                      bases: int) -> tuple[float, str, int]:
+    """(ms, what sets it, windows whose bit is set): count_codes reads each
+    code once, rolls its registers over every base of the rows and hashes
+    every emitted window.  A window whose bit in the keys' bitmap is clear
+    is settled by the bitmap's test and its word's sector; only a window
+    whose bit is set needs the directory search (lookup_bytes)."""
+    bbits = bitmap.numel().bit_length() + 4
+    bshift = directory_shift(int(keys[-1]) & ((1 << 64) - 1), bbits)
+    q = (values >> bshift) & ((1 << (64 - bshift)) - 1) if bshift else values
+    inside = (q >= 0) & (q < 1 << bbits)
+    qi = torch.where(inside, q, 0)
+    passed = inside & (((bitmap[qi >> 5] >> (qi & 31)) & 1) == 1)
+    n, n_set = values.numel(), int(passed.sum())
+    nbytes = (n_codes + SECTOR * _sectors((qi[inside & ~passed] >> 5) * 4)
+              + lookup_bytes(keys, directory, values[passed]))
+    ms, by = bound(nbytes, ROLL_OPS * bases + WINDOW_OPS * n
+                   + BITMAP_OPS * (n - n_set) + LOOKUP_OPS * n_set)
+    return ms, by, n_set
+
+
+def time_count_codes(device, tables: dict[str, torch.Tensor],
+                     genome: tuple[torch.Tensor, torch.Tensor]) -> tuple[dict, int]:
     """count_codes_ on phase 7's 50 Mb chromosome (torch seed 3) against
-    each table, held against plain, then timed (median of 7) beside the old
-    path and the plain version (once each after a warm-up): plain, old,
-    kernel, kernel, old, plain; with the bound from the chromosome's
-    emitted windows.  Returns (numbers by table, max abs difference)."""
+    each table, and on ``genome`` (a chromosome's codes, the candidates
+    its construct counted), held against plain, then timed (median of 7)
+    beside the old path and the plain version (once each after a warm-up):
+    plain, old, kernel, kernel, old, plain; with the bound from the
+    chromosome's emitted windows and the table's bitmap (count_codes_bound),
+    which is built once a table, outside the timing.  Returns (numbers by
+    case, max abs difference)."""
     gen = torch.Generator(device=device).manual_seed(3)
     chrom = torch.randint(0, 4, (CHROM_BASES,), generator=gen, device=device,
                           dtype=torch.uint8)
-    values, bases = emitted_values(chrom, K)
+    cases = [(label, chrom, keys) for label, keys in tables.items()]
+    cases.append((f"{BIG_MB} Mb genome's chr1 vs its candidates", genome[0],
+                  genome[1]))
     out, worst = {}, 0
-    for label, keys in tables.items():
+    for label, chrom, keys in cases:
+        values, bases = emitted_values(chrom, K)
         d = key_directory(keys, directory_bits(keys.numel()))
+        bm = sketch_cuda.key_bitmap(keys, bitmap_bits(keys.numel()))
         a = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
         b = torch.zeros_like(a)
-        sketch_cuda.count_codes_(a, keys, d, chrom, K)
+        sketch_cuda.count_codes_(a, keys, d, bm, chrom, K)
         count_codes_plain(b, keys, chrom, K)
         err = int((a - b).abs().max())
         worst = max(worst, err)
@@ -2276,79 +2326,106 @@ def time_count_codes(device, tables: dict[str, torch.Tensor]) -> tuple[dict, int
 
         def timed(fn, runs):
             cov = torch.zeros(keys.numel(), dtype=torch.int32, device=device)
-            return time_ms(lambda: fn(cov, keys, d, chrom, K), before=cov.zero_,
+            return time_ms(lambda: fn(cov, keys, d, bm, chrom, K), before=cov.zero_,
                            runs=runs)
 
         p1, o1, k1 = (timed(plain_count_codes, 1), timed(old_exact_path, 1),
                       timed(sketch_cuda.count_codes_, TIMING_RUNS))
         k2, o2, p2 = (timed(sketch_cuda.count_codes_, TIMING_RUNS),
                       timed(old_exact_path, 1), timed(plain_count_codes, 1))
-        bms, by = bound(chrom.numel() + lookup_bytes(keys, d, values),
-                        ROLL_OPS * bases + (WINDOW_OPS + LOOKUP_OPS) * values.numel())
+        bms, by, n_set = count_codes_bound(keys, d, bm, values, chrom.numel(), bases)
         out[label] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bms,
-                      "bound_by": by, "old_path_ms": min(o1, o2)}
-        print(f"  count_codes, {CHROM_BASES} bases ({values.numel()} windows) "
+                      "bound_by": by, "old_path_ms": min(o1, o2),
+                      "keys_hit": int(a.count_nonzero()), "windows_hit": int(a.sum()),
+                      "bitmap_passed": n_set}
+        print(f"  count_codes, {chrom.numel()} bases ({values.numel()} windows) "
               f"against the {label} ({keys.numel()} keys, directory "
-              f"2^{d.numel().bit_length() - 1}; {int(a.count_nonzero())} keys "
-              f"hit): kernel {k1:.4f}/{k2:.4f} ms, old path (torch sketch + "
+              f"2^{d.numel().bit_length() - 1}; {n_set} windows past the bitmap, "
+              f"{int(a.count_nonzero())} keys "
+              f"hit by {int(a.sum())} windows): kernel {k1:.4f}/{k2:.4f} ms, "
+              f"old path (torch sketch + "
               f"join kernel) {o1:.2f}/{o2:.2f} ms, plain {p1:.2f}/{p2:.2f} ms, "
               f"bound {bms:.4f} ms ({by}); kernel vs plain max_abs_err {err}")
     return out, worst
 
 
+def time_bitmap(device, tables: dict[str, torch.Tensor]) -> tuple[dict, int]:
+    """The exact count's key bitmap (built once a table) on
+    each table, held against plain, then timed (median of 7, plain once):
+    plain, kernel, kernel, plain; bound by the keys read and the words
+    written.  Returns (numbers by table, max abs difference)."""
+    out, worst = {}, 0
+    for label, keys in tables.items():
+        bb = bitmap_bits(keys.numel())
+        got, want = sketch_cuda.key_bitmap(keys, bb), key_bitmap_plain(keys, bb)
+        err = int((got != want).sum())
+        worst = max(worst, err)
+        if err:
+            fail(f"the key bitmap kernel disagrees with plain on the {label}")
+        p1, k1 = (time_ms(lambda: key_bitmap_plain(keys, bb), runs=1),
+                  time_ms(lambda: sketch_cuda.key_bitmap(keys, bb)))
+        k2, p2 = (time_ms(lambda: sketch_cuda.key_bitmap(keys, bb)),
+                  time_ms(lambda: key_bitmap_plain(keys, bb), runs=1))
+        bms, by = bound(8 * keys.numel() + 4 * got.numel(), 4 * keys.numel())
+        bits_set = (got[:, None] >> torch.arange(32, device=device)) & 1
+        share = float(bits_set.count_nonzero()) / bits_set.numel()
+        out[label] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bms,
+                      "bound_by": by, "bits": bb, "set_share": share}
+        print(f"  key_bitmap of the {label} ({keys.numel()} keys, 2^{bb} bits, "
+              f"{share:.4f} set): kernel {k1:.4f}/{k2:.4f} ms, plain "
+              f"{p1:.2f}/{p2:.2f} ms, bound {bms:.4f} ms ({by}); words differing "
+              f"from plain {err}")
+    return out, worst
+
+
 def time_contexts(device, contexts: list[str]) -> dict:
     """The context sketch on phase 9's distinct contexts, held against plain,
-    then timed (median of 7) beside its dedup alone and the plain version
-    (the old padded torch batches and per-context np.unique; once after a
-    warm-up): plain, kernel, kernel, plain; with its bound (the codes and
-    offsets in, the unique values and starts out, and the registers' and
-    the hash's operations)."""
+    then timed (median of 7) beside the plain version (the old padded torch
+    batches and per-context np.unique; once after a warm-up): plain,
+    kernel, kernel, plain; with the contexts that took the long route and
+    its bound (the codes and offsets in, the unique values and starts out,
+    and the registers' and the hash's operations; the emitted windows
+    counted by the long route's count pass over every context)."""
     t0 = time.perf_counter()
     host = encode_contexts(contexts)
     encode_s = time.perf_counter() - t0
     codes, offsets = _to_card(host, device)
-    captured = {}
-    saved = sketch_cuda.dedup_contexts
-
-    def capture(values, counts):
-        captured["in"] = values, counts
-        return saved(values, counts)
-
-    sketch_cuda.dedup_contexts = capture
-    try:
-        got = sketch_cuda.sketch_contexts(codes, offsets, K)
-    finally:
-        sketch_cuda.dedup_contexts = saved
+    sketch_cuda.LONG_ROUTE.clear()
+    got = sketch_cuda.sketch_contexts(codes, offsets, K)
+    n_long = sketch_cuda.LONG_ROUTE["contexts"]
     want = sketch_contexts_plain(codes, offsets, K)
     same = all(torch.equal(a, b) for a, b in zip(got, want))
     if not same:
         fail("the context kernel disagrees with plain on phase 9's contexts")
-    windows = captured["in"][0].numel()
+    windows = int(sketch_cuda.context_window_counts(
+        codes, offsets, torch.arange(len(contexts), device=device), K).sum())
     p1, k1 = (time_ms(lambda: sketch_contexts_plain(codes, offsets, K), runs=1),
               time_ms(lambda: sketch_cuda.sketch_contexts(codes, offsets, K)))
     k2, p2 = (time_ms(lambda: sketch_cuda.sketch_contexts(codes, offsets, K)),
               time_ms(lambda: sketch_contexts_plain(codes, offsets, K), runs=1))
-    dms = time_ms(lambda: dedup_contexts(*captured["in"]))
     bms, by = bound(codes.numel() + 8 * (offsets.numel() + got[0].numel()
                                          + got[1].numel()),
                     ROLL_OPS * codes.numel() + WINDOW_OPS * windows)
     lens = np.diff(host[1])
     print(f"  sketch_contexts on phase 9's {len(contexts)} contexts ({codes.numel()} "
           f"bases, longest {int(lens.max()) if len(lens) else 0}; {windows} windows "
-          f"emit, {got[0].numel()} unique in their contexts): kernel "
-          f"{k1:.4f}/{k2:.4f} ms (its dedup alone {dms:.4f} ms), plain "
+          f"emit, {got[0].numel()} unique in their contexts; {n_long} contexts on "
+          f"the long route): kernel {k1:.4f}/{k2:.4f} ms, plain "
           f"{p1:.1f}/{p2:.1f} ms, bound {bms:.4f} ms ({by}); equal to plain: "
           f"{same}; host encode {encode_s:.3f} s (host clock)")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bms,
-            "bound_by": by, "dedup_ms": dms, "encode_s": encode_s}
+            "bound_by": by, "long_route_contexts": n_long, "encode_s": encode_s}
 
 
-def phase_sketch(device, tables: dict[str, torch.Tensor], contexts: list[str]):
-    """Phase 15; returns (count_codes' numbers by table, the context
+def phase_sketch(device, tables: dict[str, torch.Tensor], contexts: list[str],
+                 genome: tuple[torch.Tensor, torch.Tensor]):
+    """Phase 15; returns (count_codes' numbers by case, the context
     sketch's numbers, count_codes' max abs error, the context sketch's)."""
     err = check_count_codes(device)
     ctx_err = check_contexts(device)
-    times, e = time_count_codes(device, tables)
+    times, e = time_count_codes(device, tables, genome)
+    times["bitmap"], e2 = time_bitmap(device, tables)
+    e = max(e, e2)
     ctx = time_contexts(device, contexts)
     return times, ctx, max(err, e), ctx_err
 
@@ -2642,8 +2719,8 @@ def main() -> int:
         big_keys = big_gi.table.keys
 
         print(f"== 9b. main path: construct at {BIG_MB} Mb in the exact regime")
-        exact_launches, e = phase_big_exact(device, work, big_ref, big_vcf,
-                                            big_keys.numel())
+        exact_launches, e, *big_genome = phase_big_exact(
+            device, work, big_ref, big_vcf, big_keys.numel())
         main_launches.update(exact_launches)
         count_codes_err = max(count_codes_err, e)
 
@@ -2676,9 +2753,9 @@ def main() -> int:
           "equal counts and values), then timed")
     count_codes_times, ctx_times, e, ctx_err = phase_sketch(
         device, {f"{BIG_MB} Mb table": big_keys, "24M-key": large_keys},
-        big_contexts)
+        big_contexts, (big_genome[1], big_genome[0]))
     count_codes_err = max(count_codes_err, e)
-    del big_keys, large_keys, big_contexts
+    del big_keys, large_keys, big_contexts, big_genome
 
     print("== 16. the emissions kernel against plain torch (tolerance: rtol "
           f"{EMIT_RTOL:g} on finite values, -inf and NaN at the same places), "
@@ -2701,10 +2778,12 @@ def main() -> int:
             "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "on_main_path": main_launches[name] > 0,
         })
-    # the exact count at a 50 Mb chromosome against phase 9's table, and
-    # against the 24M-key table under large_*
-    t, big = (count_codes_times[f"{BIG_MB} Mb table"],
-              count_codes_times["24M-key"])
+    # the exact count at a 50 Mb chromosome against phase 9's table, against
+    # the 24M-key table under large_*, and on the 100 Mb genome's own first
+    # chromosome against phase 9b's candidates under genome_*
+    t, big, own = (count_codes_times[f"{BIG_MB} Mb table"],
+                   count_codes_times["24M-key"],
+                   count_codes_times[f"{BIG_MB} Mb genome's chr1 vs its candidates"])
     kernels.append({
         "name": "count_codes", "route": "cuda", "source": source.format("sketch"),
         "replaces": "varigraph_tpu/ops/exact_count.py:44",
@@ -2715,6 +2794,21 @@ def main() -> int:
         "old_path_ms": t["old_path_ms"], "large_ms": big["ms"],
         "large_plain_ms": big["plain_ms"], "large_bound_ms": big["bound_ms"],
         "large_bound_by": big["bound_by"], "large_old_path_ms": big["old_path_ms"],
+        "genome_ms": own["ms"], "genome_plain_ms": own["plain_ms"],
+        "genome_bound_ms": own["bound_ms"], "genome_bound_by": own["bound_by"],
+        "genome_keys_hit": own["keys_hit"], "genome_windows_hit": own["windows_hit"],
+    })
+    bm, bm_large = (count_codes_times["bitmap"][f"{BIG_MB} Mb table"],
+                    count_codes_times["bitmap"]["24M-key"])
+    kernels.append({
+        "name": "key_bitmap", "route": "cuda", "source": source.format("sketch"),
+        "replaces": "varigraph_tpu/ops/exact_count.py:44",
+        "part_of": "count_codes", "launches": main_launches["key_bitmap"],
+        "max_abs_err": count_codes_err, "ms": bm["ms"], "plain_ms": bm["plain_ms"],
+        "bound_ms": bm["bound_ms"], "bound_by": bm["bound_by"], "library_ms": None,
+        "bits": bm["bits"], "set_share": bm["set_share"], "large_ms": bm_large["ms"],
+        "large_plain_ms": bm_large["plain_ms"], "large_bound_ms": bm_large["bound_ms"],
+        "large_bits": bm_large["bits"], "large_set_share": bm_large["set_share"],
     })
     kernels.append({
         "name": "sketch_contexts", "route": "cuda",

@@ -509,10 +509,14 @@ def test_cuda_exact_counter_matches_plain_join():
     k = 27
     absent = np.arange(1, 1000, dtype=np.uint64) << np.uint64(8)
     keys = np.unique(np.concatenate([absent, sketch_seq(genome["chr1"], k)]))
+    before = dict(cbf_cuda.LAUNCHES)
     kernel = ExactGenomeCounter(genome, k, device="cuda").count(keys)
+    # one bitmap for the table, one count launch a chromosome
+    assert cbf_cuda.LAUNCHES["key_bitmap"] == before.get("key_bitmap", 0) + 1
+    assert cbf_cuda.LAUNCHES["count_codes"] == before.get("count_codes", 0) + len(genome)
     plain = ExactGenomeCounter(
         genome, k, device="cuda",
-        count=lambda cov, keys, directory, codes, k: count_codes_plain(
+        count=lambda cov, keys, directory, bitmap, codes, k: count_codes_plain(
             cov, keys, codes, k),
     ).count(keys)
     np.testing.assert_array_equal(kernel, plain)

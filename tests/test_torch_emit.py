@@ -181,6 +181,11 @@ def _state_cnt_np(state_u, smask, U):
 
 @pytest.mark.parametrize("name", CASES)
 def test_plain_emissions_match_jax(name):
+    """Each side is called twice on the case's inputs.  The port's first
+    and second calls must be bit-identical, and both are held against
+    JAX's second call.  JAX's first call of a shape is its compile, the one
+    value not held: its largest difference from the second goes into any
+    failure message, beside the port's, so a drift names its side."""
     import jax.numpy as jnp
 
     import varigraph_tpu.genotype.engine_jax as ej
@@ -188,12 +193,23 @@ def test_plain_emissions_match_jax(name):
     arrays, scal = case_arrays(name)
     c, f, flag, kmask, bits, local, gt0, state_u, smask = arrays
     cnt = _state_cnt_np(state_u, smask, gt0.shape[-1])
-    want = np.asarray(ej._emissions_group(
-        *(jnp.asarray(a) for a in (c.astype(np.int32), f.astype(np.int32),
-                                   flag, kmask, bits, local, gt0, cnt, smask)),
-        *scal))
+    args = [jnp.asarray(a) for a in (c.astype(np.int32), f.astype(np.int32),
+                                     flag, kmask, bits, local, gt0, cnt, smask)]
+    want_cold = np.asarray(ej._emissions_group(*args, *scal))
+    want = np.asarray(ej._emissions_group(*args, *scal))
+    got_cold = _plain(arrays, scal)
     got = _plain(arrays, scal)
-    _assert_close(got, want)
+    fin = np.isfinite(want)
+    drift = (f"first call vs second, max abs difference: JAX "
+             f"{np.abs(want_cold[fin] - want[fin]).max()}, torch "
+             f"{np.abs(got_cold[fin] - got[fin]).max()}")
+    np.testing.assert_array_equal(
+        got_cold, got, err_msg=f"the port's first call differs from its second; {drift}")
+    for call, value in (("first", got_cold), ("second", got)):
+        try:
+            _assert_close(value, want)
+        except AssertionError as e:
+            raise AssertionError(f"the port's {call} call: {e}\n{drift}") from None
     assert np.isfinite(got).any() or name == "masked"
     if name == "no_kmask":      # no valid k-mer: 0 for every valid state
         assert (got[np.broadcast_to(smask[:, None], got.shape)] == 0).all()

@@ -1,7 +1,8 @@
 // Device functions shared by the port's k-mer kernels (csrc/join.cu,
 // csrc/cbf.cu, csrc/sketch.cu): the k-mer encoding, the sketch of a run of
 // base codes with the reference's rule for ambiguous bases, and the lookup of
-// a value in a sorted table through its key directory.
+// a value in a sorted table through its key directory, one value or a batch,
+// behind an optional occupancy bitmap.
 //
 // Values are the uint64 k-mer encodings hash64(canonical) << 8 | k, which the
 // torch side carries as int64 bit patterns.  All arithmetic and every
@@ -126,24 +127,79 @@ __device__ __forceinline__ int bucket_shift(const u64* __restrict__ keys,
   return len > bits ? len - bits : 0;
 }
 
+// The keys' occupancy bitmap (csrc/sketch.cu vg_key_bitmap): 2^bbits bits,
+// bit q set where a key's top bits below the largest key's highest are q,
+// bshift = bucket_shift(keys, m, bbits).  False when v is no key; true
+// when it may be one, which only the search settles.
+__device__ __forceinline__ bool bitmap_test(const unsigned* __restrict__ bitmap,
+                                            int bbits, int bshift, u64 v) {
+  const u64 q = v >> bshift;
+  return !(q >> bbits) && ((__ldg(bitmap + (q >> 5)) >> (q & 31)) & 1u);
+}
+
+// idx[j] = the index of v[j] in keys (unique, sorted as unsigned values) or
+// -1, for each j with look[j]; -1 for the others.  The B searches advance
+// together, each step's loads issued for the whole batch before any is
+// used: the directory pairs, then the lower-bound steps while any bucket
+// holds more than one candidate, then keys[i] and keys[i + 1] at once.
+template <int B>
+__device__ __forceinline__ void find_keys(const u64* __restrict__ keys,
+                                          const int* __restrict__ dir, int bits,
+                                          int shift, const u64 (&v)[B],
+                                          const bool (&look)[B], int (&idx)[B]) {
+  int lo[B], hi[B], n[B];
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    lo[j] = hi[j] = 0;
+    const u64 p = v[j] >> shift;
+    if (look[j] && !(p >> bits)) {  // else above every key
+      lo[j] = __ldg(dir + p);
+      hi[j] = __ldg(dir + p + 1);
+    }
+  }
+  bool more = false;
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    n[j] = hi[j] - lo[j];
+    more |= n[j] > 1;
+  }
+  // the lower bound of v[j] stays in [lo[j], lo[j] + n[j]]
+  while (more) {
+    more = false;
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (n[j] > 1) {
+        const int half = n[j] >> 1;
+        if (__ldg(keys + lo[j] + half) < v[j]) lo[j] += half;
+        n[j] -= half;
+        more |= n[j] > 1;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    idx[j] = -1;
+    if (n[j] > 0) {
+      const int i = lo[j];
+      const u64 x0 = __ldg(keys + i);
+      const u64 x1 = i + 1 < hi[j] ? __ldg(keys + i + 1) : 0;
+      if (x0 == v[j])
+        idx[j] = i;
+      else if (x0 < v[j] && i + 1 < hi[j] && x1 == v[j])
+        idx[j] = i + 1;
+    }
+  }
+}
+
 // Index of v in keys (unique, sorted as unsigned values), or -1.
 __device__ __forceinline__ long find_key(const u64* __restrict__ keys,
                                          const int* __restrict__ dir, int bits,
                                          int shift, u64 v) {
-  const u64 p = v >> shift;
-  if (p >> bits) return -1;  // above every key
-  long base = __ldg(dir + p);
-  const long end = __ldg(dir + p + 1);
-  long n = end - base;
-  if (n <= 0) return -1;
-  // the lower bound of v stays in [base, base + n]
-  while (n > 1) {
-    const long half = n >> 1;
-    base = (__ldg(keys + base + half) < v) ? base + half : base;
-    n -= half;
-  }
-  base += (__ldg(keys + base) < v);
-  return (base < end && __ldg(keys + base) == v) ? base : -1;
+  const u64 one[1] = {v};
+  const bool look[1] = {true};
+  int idx[1];
+  find_keys<1>(keys, dir, bits, shift, one, look, idx);
+  return idx[0];
 }
 
 }  // namespace vgk

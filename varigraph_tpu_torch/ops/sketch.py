@@ -6,7 +6,9 @@ count of one chromosome's base codes: every window that its genome rows
 (``ops/cbf.genome_rows``) emit, joined against the sorted keys.  It is the
 port of ``_count_codes_stack`` (``varigraph_tpu/ops/exact_count.py:44``):
 the rows GENOME_ROWS at a time through the torch ``sketch_codes``, then
-``ops/table.count_join``.
+``ops/table.count_join``.  ``key_bitmap_plain(keys, bbits)`` is the plain
+version of the keys' occupancy bitmap, which the card's count tests before
+the directory (``bitmap_bits`` sizes it).
 
 ``sketch_contexts_plain(codes, offsets, k)`` returns each context's unique
 k-mer values in unsigned order as a CSR ``(values, starts)``: context c's are
@@ -18,8 +20,9 @@ its longest context (code 4, which never emits), through the torch
 ``sketch_codes``, then ``np.unique`` per context on the host.
 
 The CUDA kernels with these contracts (``csrc/sketch.cu``) are wrapped by
-``ops/sketch_cuda.py``, whose context sketch deduplicates on the card with
-``dedup_contexts``.
+``ops/sketch_cuda.py``.  Its context sketch deduplicates each context of at
+most ``CONTEXT_TILE`` windows inside the kernel, and the few longer ones
+(the long route) with ``dedup_contexts``.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ import torch
 from .cbf import GENOME_ROWS, genome_row_codes, genome_rows
 from .kmer import sketch_codes
 from .sketch_ref import encode_bases_np
-from .table import _ORDER_FLIP, count_join
+from .table import _ORDER_FLIP, count_join, directory_shift
 
 # the plain context sketch: cap on a padded batch's area (rows x its longest
 # context); a context longer than this takes a batch of its own
 CTX_BATCH_AREA = 8 * 1024 * 1024
+# the exact count's occupancy bitmap: 2^5 bits a key or more, at most 2^27
+# bits (16 MB, which stays in the H100's 50 MB L2 beside the directory)
+_BITMAP_BITS_PER_KEY_LOG2, _MAX_BITMAP_BITS = 5, 27
 
 
 def encode_contexts(contexts: list[str]) -> tuple[np.ndarray, np.ndarray]:
@@ -59,6 +65,29 @@ def count_codes_plain(cov: torch.Tensor, keys: torch.Tensor,
         # positions 0..k-2 of a row never emit (incomplete window)
         count_join(cov, keys, values[:, k - 1:].reshape(-1),
                    emit[:, k - 1:].reshape(-1))
+
+
+def bitmap_bits(m: int) -> int:
+    """The occupancy bitmap's size (as log2 of its bits) for an m-key
+    table: 2^5 bits a key, at least 32 bits, at most 2^27."""
+    b = (max(m, 1) - 1).bit_length() + _BITMAP_BITS_PER_KEY_LOG2
+    return min(max(b, 5), _MAX_BITMAP_BITS)
+
+
+def key_bitmap_plain(keys: torch.Tensor, bbits: int) -> torch.Tensor:
+    """int32 [2^bbits / 32] on keys' device: bit q & 31 of word q >> 5 is
+    set where some key's top bbits bits, below the largest key's highest
+    (``table.directory_shift``, as the key directory cuts them), are q.  A
+    value whose q bit is clear is no key; the exact count
+    (``sketch_cuda.count_codes_``) tests it before the directory.  keys
+    int64 [M], unique and sorted by unsigned value."""
+    words = torch.zeros(1 << (bbits - 5), dtype=torch.int64, device=keys.device)
+    if keys.numel():
+        shift = directory_shift(int(keys[-1]) & ((1 << 64) - 1), bbits)
+        q = torch.unique((keys >> shift) & ((1 << bbits) - 1))
+        words.index_add_(0, q >> 5, torch.ones_like(q) << (q & 31))
+    # the uint32 words as int32 bit patterns
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def _csr(per_context: list[np.ndarray], device) -> tuple[torch.Tensor, torch.Tensor]:
