@@ -148,16 +148,18 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      tests/test_torch_emit.py; phase 14's 100 Mb group (its real inputs,
      G = 100, N = 543, S = 120), with window 37 alone bit-identical to its
      row of the group; synthetic groups at S = 465 (-n 30), at P = 4 and at
-     W = 2 (40 used haplotypes); each timed (median of 7, the plain version
-     too) with its bound.
+     W = 2 (40 used haplotypes); each timed (medians of 7) as the bare
+     kernel (50 back-to-back launches on prepared pointers), as the
+     wrapper's call and as the plain version, beside its bound.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
 summed over the main paths; times and bounds at the test graph's table for
 the counting kernels, at m = 2^30 for the filter kernels, at the 50 Mb
 chromosome and phase 9's table for count_codes, at phase 9's contexts for
-the context sketch, at phase 14's group for the emissions (with the
-S = 465, P = 4 and W = 2 groups' figures under ``s465``, ``p4``, ``w2``),
+the context sketch, at phase 14's group for the emissions (``ms`` the bare
+kernel, ``call_ms`` the wrapper's call; the S = 465, P = 4 and W = 2 groups'
+figures under ``s465``, ``p4``, ``w2``),
 and at phase 13's
 S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
 and dense-bound figures and the S = 465 group's under ``s465``: the key add
@@ -290,6 +292,7 @@ EMIT_RTOL = 4e-6
 EMIT_G, EMIT_N = 32, 543
 EMIT_PLAIN_BYTES = 1 << 28
 EMIT_ROW = 37
+EMIT_BARE_LAUNCHES = 50                       # a bare-kernel timing's launches
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32
 # at 64 lanes an SM, a quarter of the data sheet's 67 TFLOP/s float32 (128
@@ -2475,6 +2478,26 @@ def emit_diff(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, bool
             float(d.max()) if d.numel() else 0.0, same)
 
 
+def emit_bare_ms(out: torch.Tensor, args) -> float:
+    """The kernel alone: EMIT_BARE_LAUNCHES back-to-back ``vg_emissions``
+    launches on pointers prepared once (no wrapper, no launch count), the
+    median of TIMING_RUNS timings divided by their number."""
+    lib = emit_cuda.build()
+    tensors, scalars = args[:9], [float(x) for x in args[9:]]
+    G, N, S = out.shape
+    dims = (G, N, S, tensors[4].shape[2], tensors[4].shape[3], tensors[7].shape[2])
+    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+
+    def launches():
+        for _ in range(EMIT_BARE_LAUNCHES):
+            rc = lib.vg_emissions(*ptrs, *dims, *scalars, stream)
+            if rc != 0:
+                fail(f"vg_emissions failed: CUDA error {rc}")
+
+    return time_ms(launches) / EMIT_BARE_LAUNCHES
+
+
 def check_emit(name: str, args, split_row: int | None = None,
                timed: bool = True) -> dict:
     """The kernel against the plain version on ``args`` (the wrapper's
@@ -2514,12 +2537,14 @@ def check_emit(name: str, args, split_row: int | None = None,
     if split_row is not None:
         line += f"; window {split_row} alone bit-identical to its row: {same_row}"
     if timed:
-        res["ms"] = time_ms(kernel)
+        res["ms"] = emit_bare_ms(out, args)
+        res["call_ms"] = time_ms(kernel)
         res["plain_ms"] = time_ms(lambda: plain_emissions_chunked(want, *args))
         res["bound_ms"], res["bound_by"] = emit_bound(args)
-        line += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms "
-                 f"(medians of {TIMING_RUNS}), bound {res['bound_ms']:.4f} ms "
-                 f"({res['bound_by']})")
+        line += (f"; bare kernel {res['ms']:.4f} ms ({EMIT_BARE_LAUNCHES} launches "
+                 f"a timing), the call {res['call_ms']:.4f} ms, plain "
+                 f"{res['plain_ms']:.2f} ms (medians of {TIMING_RUNS}), bound "
+                 f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
     print(line)
     if not (same and rel <= EMIT_RTOL and same_runs and same_row):
         fail(f"the emissions kernel disagrees with plain on {name}, or is not "
@@ -2857,18 +2882,18 @@ def main() -> int:
             "dense_bound_ms", "fre_ms", "layout_ms", "nonzero_share",
             "modeled_wavefronts")},
     })
-    # the 100 Mb group at S = 120; no single PyTorch call computes the
-    # emissions either
+    # the 100 Mb group at S = 120, ms the bare kernel and call_ms the
+    # wrapper's call; no single PyTorch call computes the emissions either
     kernels.append({
         "name": "emissions", "route": "cuda", "source": source.format("emit"),
         "replaces": "varigraph_tpu/genotype/engine_jax.py:70",
         "launches": main_launches["emissions"],
         "max_abs_err": emit["max_abs_err"], "max_rel_err": emit["max_rel_err"],
-        "ms": emit["ms"], "plain_ms": emit["plain_ms"],
+        "ms": emit["ms"], "call_ms": emit["call_ms"], "plain_ms": emit["plain_ms"],
         "bound_ms": emit["bound_ms"], "bound_by": emit["bound_by"],
         "library_ms": None,
         **{key: {k: emit[key][k] for k in (
-            "S", "P", "W", "ms", "plain_ms", "bound_ms", "bound_by",
+            "S", "P", "W", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_rel_err")} for key in ("s465", "p4", "w2")},
     })
     print(json.dumps({"kernels": kernels}))

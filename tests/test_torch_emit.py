@@ -10,13 +10,20 @@ homozygous states, masked states whose slot rows hold garbage, pad node rows,
 coverage at exactly lower, upper, ave * h, 0 and 255, frequencies 0, 1, 2 and
 5 with and without the ref flag, no valid k-mer at all, a node where the
 verification decrement fires, and ave 4 and 23.  A pure-torch emulation of
-the kernel csrc/emit.cu (the words htmp, need and eff = htmp & ~dec, a term
-table over h = 0..P a k-mer, a bit test per slot and four partial sums over
-k = j mod 4) must equal the plain version on the same cases: the check of the
-kernel's design that runs without a card.  The wrapper (ops/emit_cuda.emissions_)
-runs the plain version on CPU tensors; on the card the kernel is held
-against plain on every case and at S = 120, 465 and 3,081 (3 words), bit for
-bit run to run and across batch positions, one launch a call.
+the kernel csrc/emit.cu (the words htmp, need and eff = htmp & ~dec; the
+launch-wide term table over (c, h) with one term computed a valid k-mer of
+a row; a lane's states in passes, each slot's bit a mask test, h selecting
+the term; four partial sums over k = j mod 4) must equal the plain version
+on the same cases, and the first kernel's design (a term table over h = 0..P
+built for each row) bit for bit: the check of the kernel's design that runs
+without a card.  Every term the table gives equals the term computed for its
+k-mer alone, bit for bit, at every c, f in {0, 1, 2, 5, 255} with and
+without the ref flag, h and P.  The wrapper (ops/emit_cuda.emissions_) runs
+the plain version on CPU tensors; on the card the kernel is held against
+plain on every case, at S = 120, 465 and 3,081 (3 words), at K = 37, on
+tensors off a 16-byte boundary and at five words with P = 5; bit for bit
+run to run and across batch positions, one launch a call; a bad slot is an
+error on the card (a device assert, in a process of its own) as on the CPU.
 
 Tolerance: rtol 4e-6 (about 32 float32 ulp) on finite log-emissions, -inf and
 NaN at exactly the same places (f = 0 makes floor(c / 0) inf or NaN, as in
@@ -27,6 +34,9 @@ lgamma comes from another library.
 
 import math
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -224,8 +234,9 @@ def test_state_counts_match_numpy():
 
 # ------------------------------------------------- the kernel's design on CPU
 
-def _emulate(arrays, scal):
-    """logE [G, N, S] computed the kernel's way, in torch on the CPU."""
+def _emulate_row_table(arrays, scal):
+    """logE [G, N, S] computed the way of the first kernel (a term table over
+    h = 0..P built for each node row), in torch on the CPU."""
     c, f, flag, kmask, bits, local, gt0, state_u, smask = (
         torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
     G, N, _ = c.shape
@@ -233,20 +244,7 @@ def _emulate(arrays, scal):
     ave, lower, upper, log_p, log_q, log_prior = (
         torch.tensor(x, dtype=torch.float32) for x in scal)
     cf, fi = c.to(torch.float32), f.to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64)
-    gt0w = (gt0.view(G, N, W, 32).to(torch.int64) << shifts).sum(dim=-1)
-    words = bits.to(torch.int64)
-    # htmp, need, and eff = htmp & ~dec
-    ci = flag & (cf >= lower) & (cf <= upper)
-    htmp = words | torch.where(ci[..., None], gt0w[:, :, None, :], 0)
-    trigger = (cf < lower) & (fi >= 2) & kmask
-    need = torch.zeros((G, N, W), dtype=torch.int64)
-    for k in range(K):
-        need |= torch.where(trigger[:, :, k, None], htmp[:, :, k], 0)
-    verify = (cf <= lower) & (fi >= 2)
-    dec = torch.where(verify[..., None],
-                      htmp & need[:, :, None, :] & ~local.to(torch.int64), 0)
-    eff = htmp & ~dec
+    eff, dec = _eff_words(c, f, flag, kmask, bits, local, gt0, scal)
     # the term table over h = 0..P
     hv = torch.arange(P + 1, dtype=torch.float32)
     meanv = ave * hv
@@ -274,13 +272,170 @@ def _emulate(arrays, scal):
     return torch.where(smask[:, None, :], acc, -math.inf).numpy(), (dec != 0)
 
 
+def _eff_words(c, f, flag, kmask, bits, local, gt0, scal):
+    """(eff, dec) int64 [G, N, K, W]: the words htmp, need, and
+    eff = htmp & ~dec of every k-mer."""
+    G, N, _ = c.shape
+    W = bits.shape[-1]
+    lower, upper = (torch.tensor(x, dtype=torch.float32) for x in scal[1:3])
+    cf, fi = c.to(torch.float32), f.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64)
+    gt0w = (gt0.view(G, N, W, 32).to(torch.int64) << shifts).sum(dim=-1)
+    words = bits.to(torch.int64) & 0xFFFFFFFF
+    ci = flag & (cf >= lower) & (cf <= upper)
+    htmp = words | torch.where(ci[..., None], gt0w[:, :, None, :], 0)
+    trigger = (cf < lower) & (fi >= 2) & kmask
+    need = torch.zeros((G, N, W), dtype=torch.int64)
+    for k in range(c.shape[2]):
+        need |= torch.where(trigger[:, :, k, None], htmp[:, :, k], 0)
+    verify = (cf <= lower) & (fi >= 2)
+    dec = torch.where(verify[..., None],
+                      htmp & need[:, :, None, :] & ~(local.to(torch.int64) & 0xFFFFFFFF), 0)
+    return htmp & ~dec, dec
+
+
+# lgamma(i + 1), i = 0..255: cc is such an integer unless f = 0 makes it
+# inf or NaN, so one evaluation a value gives every term the same bits
+_LGAMMA1 = torch.lgamma(torch.arange(256, dtype=torch.float32) + 1.0)
+
+
+def _lgamma1(cc):
+    inside = (cc >= 0) & (cc < 256)
+    idx = torch.where(inside, cc, 0.0).to(torch.int64)
+    return torch.where(inside, _LGAMMA1[idx], torch.lgamma(cc + 1.0))
+
+
+def _terms(cB, fe, h, scal, P):
+    """term(c, fe, h) by the plain version's float32 operations (cap,
+    c_div_f, zero_out, cc, log_geo, log_poi) on broadcast tensors: cB
+    float32, fe and h int64; the mean and its log come from a table over
+    h = 0..P, as the kernel's table builder forms them."""
+    ave, lower, upper, log_p, log_q, log_prior = (
+        torch.tensor(x, dtype=torch.float32) for x in scal)
+    meanv_h = ave * torch.arange(P + 1, dtype=torch.float32)
+    logmean_h = torch.log(torch.clamp(meanv_h, min=1e-30))
+    meanv, logmean = meanv_h[h], logmean_h[h]
+    ff = fe.to(torch.float32)
+    cc0 = torch.where((cB > ave) & (ff > cB / upper), 0.0, torch.floor(cB / ff))
+    cch = torch.where(cB > meanv, torch.floor(meanv), cB)
+    cc = torch.where(fe == 1, cB, torch.where(h == 0, cc0, cch))
+    log_geo = (log_prior + cc * log_q) + (1.0 - cc) * log_p
+    log_poi = (-meanv + cc * logmean) - _lgamma1(cc)
+    return torch.where(h == 0, log_geo, log_poi)
+
+
+def _term_table(P, scal):
+    """The kernel's launch-wide table [256, 2P + 1]: for each c the terms at
+    fe == 1 over h = 0..P, then at fe != 1 over h = 1..P."""
+    c = torch.arange(256, dtype=torch.float32)[:, None]
+    one = _terms(c, torch.ones(1, dtype=torch.int64),
+                 torch.arange(P + 1)[None], scal, P)
+    cap = _terms(c, torch.full((1,), 2, dtype=torch.int64),
+                 torch.arange(1, P + 1)[None], scal, P)
+    return torch.cat([one, cap], dim=1)
+
+
+def _record_terms(tab, c, fe, scal, P):
+    """A valid k-mer's P + 1 terms [..., P + 1] as a row of the kernel forms
+    them: h = 0 at fe != 1 computed (one division), the rest read from the
+    launch-wide table."""
+    one = fe == 1
+    ci = c.to(torch.int64)
+    cols = torch.where(one[..., None], 0, P) + torch.arange(1, P + 1)
+    rest = tab[ci[..., None], cols]
+    t0 = torch.where(one, tab[ci, 0],
+                     _terms(c.to(torch.float32), fe, torch.zeros_like(fe), scal, P))
+    return torch.cat([t0[..., None], rest], dim=-1)
+
+
+def _lane_states(P):
+    """States a lane of the kernel holds in registers in one pass."""
+    return 4 if P <= 4 else 2
+
+
+def _pick(t, b, P):
+    """t[..., sum_p b[..., p]] as the kernel takes it: at P <= 2 a select
+    tree (level p picks between neighbours by bit p), above it the count h
+    indexing the record."""
+    if P <= 2:
+        v = [t[..., i] for i in range(P + 1)]
+        for p in range(P - 1, -1, -1):
+            v = [torch.where(b[..., p], v[i + 1], v[i]) for i in range(p + 1)]
+        return v[0]
+    h = b.to(torch.int64).sum(dim=-1, keepdim=True)
+    return torch.gather(t, -1, h)[..., 0]
+
+
+def _emulate(arrays, scal):
+    """logE [G, N, S] computed the kernel's way, in torch on the CPU: the
+    launch-wide term table, one computed term a valid k-mer of a row, and a
+    lane's states in passes of 32 x _lane_states(P) states, each slot's bit
+    a mask test, the term picked by h, four partial sums over k = j (mod 4)
+    up to the row's last valid k-mer, joined as (a0 + a1) + (a2 + a3)."""
+    c, f, flag, kmask, bits, local, gt0, state_u, smask = (
+        torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    G, N, Kr = c.shape
+    W, S, P = bits.shape[-1], smask.shape[1], state_u.shape[-1]
+    fi = f.to(torch.int64)
+    eff, dec = _eff_words(c, f, flag, kmask, bits, local, gt0, scal)
+    fe = torch.where(flag & (fi == 1), 2, fi)
+    terms = _record_terms(_term_table(P, scal), c, fe, scal, P)
+    terms = torch.where(kmask[..., None], terms, 0.0)       # [G, N, K, P + 1]
+    ks = torch.arange(Kr)
+    kn = torch.where(kmask, ks + 1, 0).amax(dim=-1)           # [G, N]
+    su = torch.where(smask[..., None], state_u.to(torch.int64), 0)   # [G, S, P]
+    m = torch.ones((), dtype=torch.int64) << (su & 31)
+    off = su >> 5
+    out = []
+    for s0 in range(0, S, 32 * _lane_states(P)):
+        sl = slice(s0, s0 + 32 * _lane_states(P))
+        ms, offs = m[:, sl], off[:, sl]                     # [G, Sp, P]
+        Sp = ms.shape[1]
+        word = torch.gather(eff[:, :, :, None, :].expand(G, N, Kr, Sp, W), 4,
+                            offs[:, None, None].expand(G, N, Kr, Sp, P))
+        b = (word & ms[:, None, None]) != 0                 # [G, N, K, Sp, P]
+        t = _pick(terms[:, :, :, None, :].expand(G, N, Kr, Sp, P + 1), b, P)
+        part = [torch.zeros((G, N, Sp), dtype=torch.float32) for _ in range(4)]
+        for k in range(Kr):
+            live = (k < kn)[..., None]
+            part[k % 4] = torch.where(live, part[k % 4] + t[:, :, k], part[k % 4])
+        out.append((part[0] + part[1]) + (part[2] + part[3]))
+    acc = torch.cat(out, dim=-1)
+    return torch.where(smask[:, None, :], acc, -math.inf).numpy(), (dec != 0)
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_kernel_emulation_matches_plain(name):
+    """The design's emulation against plain, and bit for bit against the
+    first kernel's emulation (the per-state order kept)."""
     arrays, scal = case_arrays(name)
     got, dec = _emulate(arrays, scal)
     _assert_close(got, _plain(arrays, scal))
+    first, _ = _emulate_row_table(arrays, scal)
+    np.testing.assert_array_equal(got.view(np.int32), first.view(np.int32))
     if name == "verify":        # the decrement fired
         assert dec.any()
+
+
+@pytest.mark.parametrize("ave", [4.0, 10.3, 23.0])
+@pytest.mark.parametrize("P", range(1, 9))
+def test_term_table_lookup_is_the_per_kmer_term(P, ave):
+    """Every c in 0..255, f in {0, 1, 2, 5, 255} with and without the ref
+    flag, h in 0..P: the term a row takes from the launch-wide table (and
+    its one computed term) has the float32 bits of the term computed for
+    the k-mer alone."""
+    scal = _scalars(ave)
+    c, f, flag = (torch.from_numpy(x.reshape(-1)) for x in np.meshgrid(
+        np.arange(256, dtype=np.uint8), np.array([0, 1, 2, 5, 255], np.uint8),
+        np.array([False, True]), indexing="ij"))
+    fi = f.to(torch.int64)
+    fe = torch.where(flag & (fi == 1), 2, fi)
+    alone = _terms(c.to(torch.float32)[:, None], fe[:, None],
+                   torch.arange(P + 1)[None], scal, P)
+    looked_up = _record_terms(_term_table(P, scal), c, fe, scal, P)
+    np.testing.assert_array_equal(looked_up.numpy().view(np.int32),
+                                  alone.numpy().view(np.int32))
+    assert np.isnan(alone.numpy()).any() and np.isfinite(alone.numpy()).any()
 
 
 # ------------------------------------------------------------- the wrapper
@@ -377,6 +532,88 @@ def test_cuda_kernel_split_invariance(name):
     alone = _kernel([a[:1] for a in arrays], scal)
     inside = _kernel(batch, scal)
     np.testing.assert_array_equal(alone[0], inside[5])
+
+
+# inputs the engine does not make but the kernel takes: rows of K < 128
+# k-mers (byte loads), tensors whose storage does not start at a 16-byte
+# boundary (no word or 16-byte loads), and five hap words at P = 5 (records
+# and slot words read from shared memory, h counted then chained)
+ODD = ["k37", "offset", "p5w5"]
+
+
+def _odd_case(name, device):
+    """(tensors after out, scalars) of an ODD case on ``device``."""
+    if name == "p5w5":
+        rng = np.random.default_rng(55)
+        G, N, S, P, n_used = 2, 7, 40, 5, 150
+        W = -(-n_used // 32)
+        arrays = [rng.integers(0, 30, (G, N, K)).astype(np.uint8),
+                  rng.integers(0, 5, (G, N, K)).astype(np.uint8),
+                  rng.random((G, N, K)) < 0.3, rng.random((G, N, K)) < 0.8,
+                  _words(rng, (G, N, K, W), n_used),
+                  _words(rng, (G, N, K, W), n_used, 0.2),
+                  rng.random((G, N, 32 * W)) < 0.5,
+                  np.sort(rng.integers(0, n_used, (G, S, P)), axis=-1).astype(np.int32),
+                  rng.random((G, S)) < 0.9]
+        return _torch(arrays, device), _scalars(9.5)
+    arrays, scal = case_arrays("p3" if name == "k37" else "p2")
+    if name == "k37":
+        arrays = [a[:, :, :37].copy() if i < 6 else a for i, a in enumerate(arrays)]
+        return _torch(arrays, device), scal
+    t = _torch(arrays, device)
+    for i in (0, 2, 4):      # c and flag one byte off, bits one word off
+        buf = torch.empty(t[i].numel() + 1, dtype=t[i].dtype, device=device)
+        buf[1:] = t[i].reshape(-1)
+        t[i] = buf[1:].view(t[i].shape)
+        assert t[i].is_contiguous()
+    return t, scal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ODD)
+def test_cuda_kernel_odd_inputs_match_plain(name):
+    _need_card()
+    t, scal = _odd_case(name, "cuda")
+    shape = tuple(t[0].shape[:2]) + (t[8].shape[1],)
+    want = torch.empty(shape, dtype=torch.float32, device="cuda")
+    emissions_plain(want, *t, *scal)
+    got = torch.empty_like(want)
+    emit_cuda.emissions_(got, *t, *scal)
+    torch.cuda.synchronize()
+    _assert_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+_BAD_SLOT = textwrap.dedent("""
+    import sys
+    import torch
+    sys.path.insert(0, sys.argv[1])
+    import test_torch_emit as t
+    arrays, scal = t.case_arrays("p2")
+    arrays[7][0, 0, 1] = int(sys.argv[2])
+    out = t._out(arrays, "cuda")
+    try:
+        t.emit_cuda.emissions_(out, *t._torch(arrays, "cuda"), *scal)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print("raised:", e)
+        sys.exit(0)
+    print("no error")
+    sys.exit(1)
+""")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", [32, -1])
+def test_cuda_bad_slot_is_an_error(slot):
+    """A valid state's slot outside 0..32 W - 1 fails the kernel's device
+    assert, which the next synchronize raises.  It leaves the CUDA context
+    unusable, so it runs in a process of its own."""
+    _need_card()
+    r = subprocess.run([sys.executable, "-c", _BAD_SLOT, os.path.dirname(__file__),
+                        str(slot)], capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "raised:" in r.stdout and "assert" in r.stdout, r.stdout
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@
 ``emissions_(out, c, f, flag, kmask, bits, local, gt0, state_u, smask, ave,
 lower, upper, log_p, log_q, log_prior)`` writes into ``out`` [G, N, S] the
 log-emission of every node row and state of G windows: the contract of
-``ops/emit.emissions_plain``, whose module docstring lists the arguments.
-It replaces the XLA body ``_emissions_body``
+``ops/emit.emissions_plain``, whose module docstring lists the arguments
+(the kernel takes at most ``MAX_KMERS`` k-mers a node, the engine's
+``MAX_NODE_KMERS``).  It replaces the XLA body ``_emissions_body``
 (``varigraph_tpu/genotype/engine_jax.py:70``, vmapped over windows as
 ``_emissions_group``, ``:174``).
 
@@ -12,7 +13,14 @@ On CPU tensors it runs the plain version, ``ops/emit.emissions_plain``.  On
 CUDA tensors it launches the kernel or raises: a failed build or launch is
 an error, never a quiet fall back to plain code.  The kernel runs on the
 tensors' device and its current stream, and calls no library: the hap words
-and a per-k-mer term table replace the plain version's contractions.
+and launch-wide term tables replace the plain version's contractions.
+
+The call does not wait for the card: its checks read shapes, dtypes,
+devices and strides only.  A valid state's slot outside 0..32 W - 1 raises
+ValueError on the CPU; on the card the kernel checks each slot as it loads
+it and fails a device assert, which the next synchronizing call reports
+(and which leaves the process's CUDA context unusable, as PyTorch's own
+device-side asserts do).
 
 The kernel is compiled from the repository's source with ``nvcc`` at first
 use (``ops/cuda_build.py``), with ``-fmad=false``: its products and sums
@@ -30,6 +38,7 @@ from .cuda_build import LAUNCHES, KernelLibrary
 from .emit import emissions_plain
 
 MAX_PLOIDY = 8
+MAX_KMERS = 128     # a node row is one warp's: 32 lanes x 4 k-mers
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -87,6 +96,11 @@ def _check(out, c, f, flag, kmask, bits, local, gt0, state_u, smask) -> None:
         raise ValueError(f"P must be in 1..{MAX_PLOIDY}, got {P}")
     if W < 1:
         raise ValueError("bits must hold at least one word a k-mer")
+    if out.device.type == "cuda":
+        if K > MAX_KMERS:
+            raise ValueError(f"the kernel takes at most {MAX_KMERS} k-mers a "
+                             f"node, got {K}")
+        return   # the kernel checks the slots: no host sync here
     slots = state_u[smask]
     if slots.numel() and bool(((slots < 0) | (slots >= 32 * W)).any()):
         raise ValueError(f"a valid state's slot is outside 0..{32 * W - 1}")
