@@ -8,8 +8,8 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. the kernel builds (csrc/join.cu, csrc/cbf.cu, csrc/fb.cu,
-     csrc/sketch.cu and csrc/emit.cu, one nvcc each, started together),
-     timed;
+     csrc/sketch.cu, csrc/emit.cu and csrc/post.cu, one nvcc each, started
+     together), timed;
   3. the counting kernels of csrc/join.cu against their plain torch
      versions on the card, exactly equal on edge cases, each at its table's
      own key directory and at skewed ones: the join (count_join_) and the
@@ -24,8 +24,10 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      "--device", "cuda"])`` on the committed 2 Mb graph
      (tests/fixtures/slice2m) with 20x reads simulated from sample S1's two
      haplotypes; count_packed must have launched once per batch,
-     emissions and forward_backward at least once, and neither the torch
-     emission body nor the plain ``_scan`` on the card, and S1's genotypes
+     emissions and forward_backward at least once, posterior as often as
+     emissions (one launch a group), neither the torch emission body nor
+     the plain ``_scan`` on the card, and no window through the plain
+     posterior (whose alpha and beta are host copies), and S1's genotypes
      must agree with the VCF's truth at >= 99% of the sites; the first
      genotype of the process prints its emit seconds split into upload and
      device, and whether libcublas is mapped into the process before and
@@ -92,8 +94,9 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      fixture with the shard threshold forced equals the committed graph.vgt
      in every member; genotype over the mesh (replicated counting,
      count_packed once per batch over the devices, the emissions kernel,
-     window-sharded forward/backward through the kernel on each shard, no
-     torch emission body or plain ``_scan`` on the card) gives phase 4's
+     window-sharded forward/backward through the kernel on each shard, its
+     alpha and beta gathered on cuda:0 for the posterior kernel, as in phase
+     4, no torch emission body or plain ``_scan`` on the card) gives phase 4's
      coverage and VCF; and the per-shard kernels are timed at 2^29 cells per
      shard;
  13. the forward/backward kernel (csrc/fb.cu) against the plain ``_scan``
@@ -120,11 +123,13 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      files (tools/gen_big.py's apply_hap and write_reads from phase 9's
      haplotypes) through the CLI on the card: phase and engine timings,
      launches, S1's GT agreement with the generator's truth (reported, not
-     a gate), the scoring through its kernels alone; then ``genotype_torch``
-     on the saved counts through the kernels, with the plain
-     forward/backward routed in and with the plain emissions routed in must
-     give the same GT, UK and NAK at every site, GPP within 2e-3 (the
-     group's emission inputs are kept for phase 16);
+     a gate), the scoring through its kernels alone (the posterior as in
+     phase 4); then ``genotype_torch`` on the saved counts through the
+     kernels, with the plain forward/backward routed in and with the plain
+     emissions routed in must give the same GT, UK and NAK at every site,
+     GPP within 2e-3, and with the plain posterior routed in (on host copies
+     of its inputs) equal records, GPP too (the group's emission and
+     posterior inputs are kept for phases 16 and 17);
  15. the sketch kernels of csrc/sketch.cu against their plain torch
      versions on the card, exactly equal: count_codes on N-bearing genomes
      (Ns at row edges, (AT)n, a poly-A run counting past 255, keys with bit
@@ -150,7 +155,17 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      row of the group; synthetic groups at S = 465 (-n 30), at P = 4 and at
      W = 2 (40 used haplotypes); each timed (medians of 7) as the bare
      kernel (50 back-to-back launches on prepared pointers), as the
-     wrapper's call and as the plain version, beside its bound.
+     wrapper's call and as the plain version, beside its bound;
+ 17. the posterior kernel (csrc/post.cu) against its plain version on host
+     copies of the same inputs, bit for bit (winner state, UK, NAK, CAK,
+     fallback flags and probabilities), bit-identical over two runs, one
+     launch a call: the card cases of tests/test_torch_posterior.py, phase
+     14's 100 Mb group (its real inputs) and a synthetic group at the
+     benchmark cells' shape (G = 4 windows of N = 5,854 nodes, S = 120,
+     P = 2, K = 128); each timed (the wrapper's call, a median of 7) beside
+     its bound and the plain version (one host run); then that group tiled
+     to a full group of 256 windows on the card: the kernel timed, and the
+     device bytes it reads and the peak allocated during the call.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
@@ -159,7 +174,8 @@ the counting kernels, at m = 2^30 for the filter kernels, at the 50 Mb
 chromosome and phase 9's table for count_codes, at phase 9's contexts for
 the context sketch, at phase 14's group for the emissions (``ms`` the bare
 kernel, ``call_ms`` the wrapper's call; the S = 465, P = 4 and W = 2 groups'
-figures under ``s465``, ``p4``, ``w2``),
+figures under ``s465``, ``p4``, ``w2``), at the cells' shape for the posterior
+(phase 14's group under ``big``),
 and at phase 13's
 S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
 and dense-bound figures and the S = 465 group's under ``s465``: the key add
@@ -214,7 +230,7 @@ from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
 from varigraph_tpu_torch.ops import (cbf_cuda, emit_cuda, fb_cuda, join_cuda,
-                                     sketch_cuda)
+                                     post_cuda, sketch_cuda)
 from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
@@ -223,6 +239,8 @@ from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
 from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
 from varigraph_tpu_torch.ops.emit import emissions_plain
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
+from varigraph_tpu_torch.ops.post import (WINNER, posterior_plain, probabilities,
+                                          row_width)
 from varigraph_tpu_torch.ops.kmer import (pack_codes_np, sketch_codes,
                                           sketch_packed)
 from varigraph_tpu_torch.ops.sketch import (bitmap_bits, count_codes_plain,
@@ -233,12 +251,14 @@ from varigraph_tpu_torch.ops.table import (count_join, count_packed,
                                            directory_bits, directory_shift,
                                            key_directory)
 from varigraph_tpu_torch.parallel.mesh import Mesh
+from varigraph_tpu_torch.utils import timing
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import gen_big  # noqa: E402
 import test_torch_emit  # noqa: E402
+import test_torch_posterior  # noqa: E402
 from data_gen import apply_haplotype, make_reads, write_fastq  # noqa: E402
 
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "slice2m")
@@ -293,6 +313,12 @@ EMIT_G, EMIT_N = 32, 543
 EMIT_PLAIN_BYTES = 1 << 28
 EMIT_ROW = 37
 EMIT_BARE_LAUNCHES = 50                       # a bare-kernel timing's launches
+# the posterior kernel (phases 14 and 17): every output equal to plain's,
+# bit for bit (its float64 sums follow numpy's order); the benchmark cells'
+# group: 4 windows of 23,417 / 4 sites
+POST_CELL = dict(n=5854, S=120, P=2, K=128, nhap=65, gt_max=1,
+                 fallback_share=0.001)
+POST_FULL_G = 256                              # engine_torch._WINDOW_GROUP
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32
 # at 64 lanes an SM, a quarter of the data sheet's 67 TFLOP/s float32 (128
@@ -799,6 +825,22 @@ def cublas_mapped() -> bool:
     """Whether a cuBLAS library is mapped into this process."""
     with open("/proc/self/maps") as fh:
         return "libcublas" in fh.read()
+
+
+def check_posterior_on_card(launches, moved, where: str) -> None:
+    """Fails unless the posterior launched its kernel once for each
+    emissions launch (one a group) and every window's alpha and beta stayed
+    on the card: records from the kernel's rows, and no window through the
+    plain posterior, which reads host copies."""
+    n_post, n_emit = launches.get("posterior", 0), launches.get("emissions", 0)
+    print(f"  {where}: posterior launches {n_post}, emissions launches {n_emit}; "
+          f"nodes from the card's rows {moved.get('post.card_nodes', 0)}, "
+          f"string-keyed from copied chains {moved.get('post.fallback_nodes', 0)}; "
+          f"windows through the plain posterior {moved.get('post.plain_windows', 0)}")
+    if (n_post < 1 or n_post != n_emit or not moved.get("post.card_nodes", 0)
+            or moved.get("post.plain_windows", 0)):
+        fail(f"{where}: the posterior did not run on the card alone, once a "
+             f"group")
 
 
 def check_scoring_on_card(launches, calls, where: str) -> None:
@@ -1730,6 +1772,7 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
 
         # genotype over the mesh: replicated counting, window-sharded fb
         LAUNCHES.clear()
+        counters = timing.counters()
         mesh_counts = os.path.join(work, "counts_mesh.npz")
         with counted_plain() as calls:
             vcf, log_text = run_main_path(device.type, work, cfg_path,
@@ -1746,6 +1789,8 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
     same_vcf = _vcf_bytes(vcf) == _vcf_bytes(vcf4)
     check_counted_per_batch(log_text, LAUNCHES, "genotype over the mesh")
     check_scoring_on_card(LAUNCHES, calls, "genotype over the mesh")
+    check_posterior_on_card(LAUNCHES, timing.counters_since(counters),
+                            "genotype over the mesh")
     if LAUNCHES["forward_backward"] < mesh.size:
         fail("genotype over the mesh did not launch forward_backward on "
              "every device")
@@ -2050,6 +2095,7 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         fh.write("S1 " + " ".join(fqs) + "\n")
     counts = os.path.join(work, "big_counts.npz")
     LAUNCHES.clear()
+    counters = timing.counters()
     with counted_plain() as calls:
         t0 = time.perf_counter()
         vcf, log_text = run_main_path("cuda", work, cfg_path, counts,
@@ -2058,6 +2104,8 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
     launches = dict(LAUNCHES)
     check_counted_per_batch(log_text, launches, f"the {BIG_MB} Mb genotype")
     check_scoring_on_card(launches, calls, f"the {BIG_MB} Mb genotype")
+    check_posterior_on_card(launches, timing.counters_since(counters),
+                            f"the {BIG_MB} Mb genotype")
     print(f"  launches {launches}")
     print("  phase timings:")
     print_timings(phase_timings(log_text), wall)
@@ -2073,8 +2121,9 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         gi.table.cov_u8(), gi.table.freq_np(), gi.table.hap_words_np(),
         gi.nhap, gi.vcf_ploidy, cfg.sample_ploidy, read_base / gi.genome_size,
         cfg.use_depth)
-    shapes, groups = [], []
-    saved = engine_torch_mod._forward_backward, engine_torch_mod.emissions_
+    shapes, groups, post_groups = [], [], []
+    saved = (engine_torch_mod._forward_backward, engine_torch_mod.emissions_,
+             engine_torch_mod.posterior_)
 
     def recorded_fb(logE, *a):
         shapes.append(tuple(logE.shape))
@@ -2084,6 +2133,10 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         groups.append(a)
         emit_cuda.emissions_(out, *a)
 
+    def recorded_post(out, *a):
+        post_groups.append(tuple(t.clone() for t in a))
+        post_cuda.posterior_(out, *a)
+
     def run():
         t0 = time.perf_counter()
         res = genotype_torch(gi, cfg, hap_cov, cfg.seed, device=device)
@@ -2092,15 +2145,21 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
     try:
         engine_torch_mod._forward_backward = recorded_fb
         engine_torch_mod.emissions_ = recorded_emit
+        engine_torch_mod.posterior_ = recorded_post
         res_k, t_k = run()
+        engine_torch_mod.posterior_ = saved[2]
         engine_torch_mod.emissions_ = saved[1]
         engine_torch_mod._forward_backward = engine_torch_mod._forward_backward_plain
         res_p, t_p = run()
         engine_torch_mod._forward_backward = saved[0]
         engine_torch_mod.emissions_ = plain_emissions_chunked
         res_e, t_e = run()
+        engine_torch_mod.emissions_ = saved[1]
+        engine_torch_mod.posterior_ = plain_posterior_on_host
+        res_q, t_q = run()
     finally:
-        engine_torch_mod._forward_backward, engine_torch_mod.emissions_ = saved
+        (engine_torch_mod._forward_backward, engine_torch_mod.emissions_,
+         engine_torch_mod.posterior_) = saved
     node_at = {(c, n.start): n for c in gi.graph.nodes for n in gi.graph.nodes[c]}
 
     def gt(rec, key):
@@ -2115,21 +2174,34 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
         gpp = max(abs(res_k[k].probability - other[k].probability) for k in res_k)
         return mism, gpp
 
-    (mism, gpp), (mism_e, gpp_e) = differ(res_p, "forward/backward"), differ(
-        res_e, "emissions")
+    (mism, gpp), (mism_e, gpp_e), (mism_q, gpp_q) = (
+        differ(res_p, "forward/backward"), differ(res_e, "emissions"),
+        differ(res_q, "posterior"))
     print(f"  genotype_torch on the saved counts, {len(res_k)} sites over "
           f"groups (W, N, S) {shapes}: the kernels {t_k:.2f} s, the plain "
           f"forward/backward routed in {t_p:.2f} s, the plain emissions routed "
-          f"in {t_e:.2f} s (host clock); against the plain forward/backward "
+          f"in {t_e:.2f} s, the plain posterior routed in {t_q:.2f} s (host "
+          f"clock); against the plain forward/backward "
           f"{mism} GT/UK/NAK mismatches, max |GPP diff| {gpp:.3g}; against "
-          f"the plain emissions {mism_e}, {gpp_e:.3g}")
+          f"the plain emissions {mism_e}, {gpp_e:.3g}; against the plain "
+          f"posterior {mism_q}, {gpp_q:.3g}")
     if not shapes or any(s[2] != 120 for s in shapes):
         fail(f"the {BIG_MB} Mb genotype did not score at S = 120")
     if mism or gpp > GPP_TOL:
         fail("the kernel's calls differ from the plain forward/backward's")
     if mism_e or gpp_e > GPP_TOL:
         fail("the emissions kernel's calls differ from the plain emissions'")
-    return launches, groups[0]
+    if mism_q or gpp_q:
+        fail("the posterior kernel's records differ from the plain posterior's")
+    return launches, groups[0], post_groups[0]
+
+
+def plain_posterior_on_host(out, *a):
+    """The plain posterior on host copies of a card call's inputs, its
+    results copied back."""
+    o = out.cpu()
+    posterior_plain(o, *(t.cpu() for t in a))
+    out.copy_(o)
 
 
 # ---------------------------------------------------------------- phase 15
@@ -2604,6 +2676,114 @@ def phase_emit(device, big_group) -> dict:
     return big
 
 
+# ---------------------------------------------------------------- phase 17
+
+def post_bound(args) -> tuple[float, str]:
+    """The least time of the posterior's bytes: each real row's alpha and
+    beta, k-mer rows (c, f, kmask and the hap words), GT bytes and kind,
+    every row's output and each window's states."""
+    alpha, _, kind, gt, state_u, smask, c, _, _, bits = args
+    G, N, S = alpha.shape
+    K, W, P = bits.shape[2], bits.shape[3], state_u.shape[2]
+    real = int((kind == 1).sum())
+    nbytes = (real * (8 * S + K * (3 + 4 * W) + gt.shape[2])
+              + G * N * (4 + 4 * row_width(P)) + G * S * (4 * P + 1))
+    return bound(nbytes, 0)
+
+
+def check_post(where: str, args, timed: bool = True) -> dict:
+    """The kernel against plain on host copies of ``args`` (alpha .. bits on
+    the card), bit-identical over two runs; timed where asked."""
+    G, N, S = args[0].shape
+    P = args[4].shape[2]
+
+    def run(a):
+        out = torch.empty((G, N, row_width(P)), dtype=torch.int32, device=a[0].device)
+        post_cuda.posterior_(out, *a)
+        return out
+
+    before = LAUNCHES["posterior"]
+    out = run(args)
+    torch.cuda.synchronize()
+    if LAUNCHES["posterior"] != before + 1:
+        fail(f"posterior {where}: not one launch a call")
+    host = tuple(a.cpu() for a in args)
+    t0 = time.perf_counter()
+    wo = run(host).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    go = out.cpu().numpy()
+    mism = int((go[..., WINNER:] != wo[..., WINNER:]).any(axis=-1).sum())
+    gpp = int((probabilities(go) != probabilities(wo)).sum())
+    same = torch.equal(run(args), out)
+    res = {"G": G, "N": N, "S": S, "P": P, "float_diffs": gpp,
+           "fallback_rows": int((wo[..., WINNER] == -2).sum())}
+    if timed:
+        res["ms"] = time_ms(lambda: post_cuda.posterior_(out, *args))
+        res["plain_ms"] = plain_ms
+        res["bound_ms"], res["bound_by"] = post_bound(args)
+    print(f"  {where}: G {G}, N {N}, S {S}, P {P}: {mism} rows differ in winner, "
+          f"UK, NAK or CAK; {gpp} probabilities differ; fallback rows "
+          f"{res['fallback_rows']}; two runs bit-identical {same}"
+          + (f"; kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+             f"({res['bound_by']}), plain {plain_ms:.1f} ms" if timed else ""))
+    if mism or gpp or not same:
+        fail(f"posterior {where}: the kernel differs from plain")
+    return res
+
+
+def phase_post(device, big_group) -> dict:
+    """Phase 17; returns the cells' group's numbers, phase 14's group's
+    under ``big`` and the float differences over every case (0)."""
+    tp = test_torch_posterior
+    done = []
+    for name, kw in tp.CARD_CASES.items():
+        group = [tp.make_window(50 + i, chrom=f"c{i}", **kw) for i in range(3)]
+        done.append(check_post(f"case {name}", tp._tensors(tp.group_arrays(group),
+                                                           device), timed=False))
+    big = check_post(f"the {BIG_MB} Mb group", big_group)
+    group = [tp.make_window(70 + i, chrom=f"c{i}", **POST_CELL) for i in range(4)]
+    cells = tp._tensors(tp.group_arrays(group), device)
+    res = check_post("the cells' group", cells)
+    res["big"] = big
+    res["float_diffs"] = sum(r["float_diffs"] for r in done + [big, res])
+    res["full"] = post_full_group(cells)
+    return res
+
+
+def post_full_group(cells) -> dict:
+    """The cells' group tiled to a full group of POST_FULL_G windows on the
+    card: the kernel's time, the bytes of alpha and beta and of the k-mer
+    inputs the engine keeps on the card for it (c, f, kmask, bits), and the
+    peak allocated during the call."""
+    reps = POST_FULL_G // cells[0].shape[0]
+    full = tuple(t.repeat(reps, *([1] * (t.dim() - 1))) for t in cells)
+    alpha, beta, kind, gt, su, sm, c, f, kmask, bits = full
+    G, N, S = alpha.shape
+    out = torch.empty((G, N, row_width(su.shape[2])), dtype=torch.int32,
+                      device=alpha.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    post_cuda.posterior_(out, *full)
+    torch.cuda.synchronize()
+    res = {"G": G, "N": N, "S": S,
+           "chains_bytes": 2 * alpha.numel() * 4,
+           "kept_bytes": sum(t.numel() * t.element_size() for t in (c, f, kmask, bits)),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "call_bytes": torch.cuda.max_memory_allocated() - base,
+           "ms": time_ms(lambda: post_cuda.posterior_(out, *full))}
+    res["bound_ms"], res["bound_by"] = post_bound(full)
+    print(f"  a full group, the cells' group tiled: G {G}, N {N}, S {S}: kernel "
+          f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+          f"alpha and beta {res['chains_bytes'] / 2**30:.3f} GiB, the kept k-mer "
+          f"inputs {res['kept_bytes'] / 2**30:.3f} GiB; peak allocated "
+          f"{res['peak_bytes'] / 2**30:.3f} GiB, of it during the call "
+          f"{res['call_bytes'] / 2**20:.1f} MiB")
+    del full, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2630,7 +2810,7 @@ def main() -> int:
         mod.build()
         return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
 
-    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda, emit_cuda)
+    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda, emit_cuda, post_cuda)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for lib, secs in pool.map(timed_build, libs):
             print(f"  built {lib} in {secs:.2f} s")
@@ -2647,6 +2827,7 @@ def main() -> int:
         counts = os.path.join(work, "counts.npz")
         cublas_before = cublas_mapped()
         LAUNCHES.clear()
+        counters = timing.counters()
         with counted_plain() as calls:
             t0 = time.perf_counter()
             vcf, log_text = run_main_path("cuda", work, cfg_path, counts)
@@ -2655,6 +2836,7 @@ def main() -> int:
         main_launches = collections.Counter(LAUNCHES)
         nbatches = check_counted_per_batch(log_text, LAUNCHES, "genotype")
         check_scoring_on_card(LAUNCHES, calls, "genotype")
+        check_posterior_on_card(LAUNCHES, timing.counters_since(counters), "genotype")
         m = re.search(r"\(table on (\S+)\)", log_text)
         table_dev = m.group(1) if m else "?"
         print(f"  count_packed launches {LAUNCHES['count_packed']}, batches "
@@ -2770,7 +2952,7 @@ def main() -> int:
         fb120, fb465, fb_err = phase_fb(device)
 
         print(f"== 14. main path: genotype of the {BIG_MB} Mb graph at S = 120")
-        big_launches, big_emit_group = phase_big_genotype(
+        big_launches, big_emit_group, big_post_group = phase_big_genotype(
             device, work, big_vgt, big_haps, big_truth)
         main_launches.update(big_launches)
         del big_haps
@@ -2788,6 +2970,11 @@ def main() -> int:
           "then timed")
     emit = phase_emit(device, big_emit_group)
     del big_emit_group
+
+    print("== 17. the posterior kernel against its plain version (tolerance: "
+          "none, bit for bit), then timed")
+    post = phase_post(device, big_post_group)
+    del big_post_group
 
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
@@ -2896,6 +3083,18 @@ def main() -> int:
         **{key: {k: emit[key][k] for k in (
             "S", "P", "W", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "max_rel_err")} for key in ("s465", "p4", "w2")},
+    })
+    # the cells' group; no single PyTorch call computes the posterior either
+    kernels.append({
+        "name": "posterior", "route": "cuda", "source": source.format("post"),
+        "replaces": None, "launches": main_launches["posterior"],
+        "float_diffs": post["float_diffs"], "ms": post["ms"],
+        "plain_ms": post["plain_ms"], "bound_ms": post["bound_ms"],
+        "bound_by": post["bound_by"], "library_ms": None,
+        "big": {k: post["big"][k] for k in (
+            "G", "N", "S", "P", "ms", "plain_ms", "bound_ms", "bound_by",
+            "float_diffs")},
+        "full": post["full"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ The recorder: nesting and parent ids, a parent handed to a worker thread,
 the ring's bound and what it drops, counters (the kernel launch counters
 among them) under threads, and its cost.  The native reader's own clocks
 and counts.  A CPU genotype of a data_gen dataset: each sample's span tree,
-the counting counters against what they count, the log lines the benchmark
+the counting counters against what they count, the posterior's counters, the log lines the benchmark
 and the smoke read, and the shared clock with the profiler's trace through
 the benchmark's mark.
 """
@@ -249,6 +249,18 @@ def test_the_sample_span_holds_its_counters(genotyped, dataset):
         assert c["count.batches"] >= 2 and c["count.bases"] > 0
         if get_fastq_lib():                     # the native reader's clocks
             assert c["feed.inflate_s"] > 0 and c["feed.pack_s"] > 0
+
+
+def test_the_sample_span_counts_the_posteriors_path(genotyped):
+    """On the CPU each window's posterior goes through the plain version:
+    the sample's counters count every window, and no record from the card."""
+    spans = genotyped["spans"]
+    for s in (sp for sp in spans if sp.name == "sample"):
+        c = s.attrs["counters"]
+        posts = [sp for sp in spans if sp.trace == s.id and sp.name == "post.window"]
+        assert c["post.plain_windows"] == len(posts) > 2
+        for name in ("post.card_nodes", "post.fallback_nodes", "launches.posterior"):
+            assert name not in c, name
 
 
 def test_the_counting_counters_match_what_they_count(dataset):

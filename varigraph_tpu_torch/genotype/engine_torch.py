@@ -18,8 +18,15 @@ src/genotype.cpp -- see its docstring for the file:line map):
     direction walks the nodes.  Its plain version, ``_scan``, loops over
     nodes batched over windows; the transition is P+1 class masks times
     per-step scalar weights.  ``kind`` resets the chain or skips pad nodes.
-  * window prep and posterior aggregation (string-keyed genotype grouping,
-    NAK/CAK/UK) stay on the host, copied from the JAX engine.
+  * posterior: on the card the hand kernel ``csrc/post.cu``
+    (``ops/post_cuda.py``) reduces alpha·beta, the genotype groups, the
+    winner and its NAK/CAK/UK to one row a node, right after the
+    forward/backward; only those rows (and the alpha and beta rows of a
+    node whose GT values send it to the string-keyed path) come to the
+    host.  Its plain version, ``ops/post.posterior_plain``, is the JAX
+    engine's vectorised float64 numpy, for alpha and beta on the CPU.  The
+    records are built on the host.
+  * window prep stays on the host, copied from the JAX engine.
   * several devices and processes (engine_jax.py:537-551,604-625,781-784):
     each process scores its round-robin share of the windows and the
     results merge at the end (parallel/dist.py); within a process, a mesh
@@ -39,8 +46,12 @@ waits for them (``engine.wait_prep``, ``engine.wait_post``) and each group's
 ``engine timing:`` line is summed.  Nothing in the emissions step waits for
 the card, so on the card ``group.emit`` (the line's ``emit``) is the host's
 share alone: the pageable copies of the inputs and the kernel's enqueue.
-The kernel runs on into ``group.fb``, which ends in a copy back to the host;
-its own device time is read from a profiler trace (``emissions_kernel``).
+The kernel runs on into ``group.fb``, which ends in a copy back to the host
+(on the card, of the posterior kernel's rows); its own device time is read
+from a profiler trace (``emissions_kernel``).  Counters: ``post.card_nodes``
+(records from the kernel's rows), ``post.fallback_nodes`` (string-keyed
+records from alpha and beta rows copied off the card),
+``post.plain_windows`` (windows through the plain posterior).
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ import torch
 from ..index.structs import GraphIndex
 from ..ops.emit_cuda import emissions_
 from ..ops.fb_cuda import forward_backward
+from ..ops.post import (FALLBACK, NAK, UK, WINNER, post_rows, probabilities,
+                        row_width)
+from ..ops.post_cuda import posterior_
 from ..ops.table import pack_hapbits
 from ..parallel import dist
 from ..parallel.mesh import Mesh
@@ -472,7 +486,7 @@ def _posterior_string_fallback(rec_out, prep, post, node, nak_u, cak_num_u,
 def _forward_backward_mesh(mesh: Mesh, logE, *args, fre_mode: bool, P: int):
     """``_forward_backward`` with the window axis split over the mesh
     devices in contiguous slices of ceil(W / mesh size) windows; alpha and
-    beta come back to the host."""
+    beta are gathered on logE's device."""
     W = logE.shape[0]
     step = -(-W // mesh.size)
     parts = [
@@ -480,8 +494,8 @@ def _forward_backward_mesh(mesh: Mesh, logE, *args, fre_mode: bool, P: int):
                           *(a[lo:lo + step].to(d) for a in args), fre_mode, P)
         for d, lo in zip(mesh.devices, range(0, W, step))
     ]
-    return (np.concatenate([a.cpu().numpy() for a, _ in parts]),
-            np.concatenate([b.cpu().numpy() for _, b in parts]))
+    return (torch.cat([a.to(logE.device) for a, _ in parts]),
+            torch.cat([b.to(logE.device) for _, b in parts]))
 
 
 def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
@@ -620,6 +634,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 bits_all = np.zeros((G, N, K, Ww), np.uint32)
                 local_all = np.zeros((G, N, K, Ww), np.uint32)
                 gt0_all = np.zeros((G, N, U), bool)
+                gt_all = np.zeros((G, N, U), np.uint8)
                 su_all = np.zeros((G, S, P), np.int32)
                 for wi, prep in enumerate(group):
                     n = len(prep.node_refs)
@@ -629,6 +644,9 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                     bits_all[wi, :n, :, : bp.shape[2]] = bp
                     local_all[wi, :n, :, : lp.shape[2]] = lp
                     gt0_all[wi, :n, : prep.gt0_u.shape[1]] = prep.gt0_u
+                    # the posterior's GT values, saturated: above 9 is all
+                    # it tells apart there
+                    gt_all[wi, :n, : prep.G_nu.shape[1]] = np.minimum(prep.G_nu, 255)
                     su_all[wi, :s] = prep.state_u
                     c_all[wi, :n] = prep.c
                     f_all[wi, :n] = prep.f
@@ -665,6 +683,9 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 su_d = dev(su_all)
                 sm_d = dev(sm_all)
                 logE = torch.empty((G, N, S), dtype=torch.float32, device=device)
+                # on the card, each launch's window range and the inputs of
+                # it that the posterior kernel reads after the forward/backward
+                kept = []
                 for g0 in range(0, G, gc):
                     g1 = g0 + gc
                     for n0 in range(0, N, nc):
@@ -681,18 +702,36 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                         emissions_(out, *inputs, su_d[g0:g1], sm_d[g0:g1], *scalars)
                         if not whole:
                             logE[g0:g1, n0:n1] = out
+                        elif device.type == "cuda":
+                            c_d, f_d, _, kmask_d, bits_d, _, _ = inputs
+                            kept.append((g0, g1, c_d, f_d, kmask_d, bits_d))
+                del inputs
             _t["emit"] += sp.seconds
 
+            # the forward/backward, and on the card the posterior kernel
+            # after it, one launch an emissions launch, whose inputs it reads:
+            # only its rows come back.  Host alpha and beta (the CPU) go to
+            # the posterior worker for the plain posterior.
             with timing.span("group.fb") as sp:
-                fb_args = (dev(kind_all), dev(lrf), dev(lnrf), dev(lrb), dev(lnrb),
+                kind_d = dev(kind_all)
+                fb_args = (kind_d, dev(lrf), dev(lnrf), dev(lrb), dev(lnrb),
                            dev(ov_all), dev(lw_all), sm_d)
                 if mesh is not None:
                     alpha, beta = _forward_backward_mesh(
                         mesh, logE, *fb_args, fre_mode=fre_mode, P=P)
                 else:
                     alpha, beta = _forward_backward(logE, *fb_args, fre_mode, P)
-                    alpha = alpha.cpu().numpy()
-                    beta = beta.cpu().numpy()
+                if alpha.device.type == "cuda":
+                    out, chains = _posterior_on_card(alpha, beta, kind_d, dev(gt_all),
+                                                     su_d, sm_d, kept, kind_all)
+                    plain = None
+                else:
+                    out = np.empty((G, N, row_width(P)), np.int32)
+                    chains = [(a.numpy(), b.numpy()) for a, b in zip(alpha, beta)]
+                    plain = (alpha, beta, *(torch.from_numpy(a) for a in (
+                        kind_all, gt_all, su_all, sm_all, c_all, f_all, kmask_all,
+                        bits_all.view(np.int32))))
+                del kept, alpha, beta
             _t["fb"] += sp.seconds
 
             if post_fut is not None:
@@ -700,7 +739,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                     post_fut.result()
                 _t["post"] += sp.seconds
             post_fut = post_pool.submit(
-                _posterior_window_group, group, alpha, beta, results, scoring
+                _posterior_window_group, group, out, chains, results, scoring, plain
             )
 
         if post_fut is not None:
@@ -721,110 +760,96 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     return results
 
 
-def _posterior_window_group(group, alpha, beta, results, parent=None):
-    """The posterior of each window of the group into ``results``; each
-    window is a span ``post.window`` (under ``parent``), its per-node record
-    loop a span ``post.records``."""
+def _posterior_on_card(alpha, beta, kind_d, gt_d, su_d, sm_d, kept, kind_all):
+    """The posterior kernel over a group on the card, one launch for each
+    emissions launch ``kept`` holds (its window range and the c, f, kmask and
+    bits it uploaded), which must cover the group in order; returns the rows,
+    copied to the host, and each window's alpha and beta rows of its fallback
+    nodes, ({node: alpha row}, {node: beta row})."""
+    G, N, S = alpha.shape
+    P = su_d.shape[2]
+    out_d = torch.empty((G, N, row_width(P)), dtype=torch.int32, device=alpha.device)
+    done = 0
+    for g0, g1, c, f, kmask, bits in kept:
+        if g0 != done:
+            break
+        w = slice(g0, g1)
+        posterior_(out_d[w], alpha[w], beta[w], kind_d[w], gt_d[w], su_d[w],
+                   sm_d[w], c, f, kmask, bits)
+        done = min(g1, G)
+    if done != G:
+        raise RuntimeError("the posterior's launches do not cover the group")
+    out = out_d.cpu().numpy()
+    gi, ni = np.nonzero(out[..., WINNER] == FALLBACK)
+    chains = [({}, {}) for _ in range(G)]
+    if len(gi):
+        at = (torch.from_numpy(gi).to(alpha.device),
+              torch.from_numpy(ni).to(alpha.device))
+        for g, n, a, b in zip(gi.tolist(), ni.tolist(), alpha[at].cpu().numpy(),
+                              beta[at].cpu().numpy()):
+            chains[g][0][n] = a
+            chains[g][1][n] = b
+    timing.count("post.card_nodes", int((kind_all == 1).sum()) - len(gi))
+    timing.count("post.fallback_nodes", len(gi))
+    return out, chains
+
+
+def _posterior_window_group(group, out, chains, results, parent=None, plain=None):
+    """The records of each window of the group into ``results``, from
+    ``out`` (the posterior's rows, [G, N, row_width]) and ``chains`` (each
+    window's alpha and beta rows, indexed by node, which only fallback nodes
+    read).  With ``plain`` (alpha, beta and the posterior's other inputs as
+    CPU tensors) each window's ``posterior_`` fills ``out`` first, through
+    the plain version.  Each window is a span ``post.window`` (under
+    ``parent``), its per-node record loop a span ``post.records``."""
     for wi, prep in enumerate(group):
         with timing.span("post.window", parent=parent, chrom=prep.chrom,
                          nodes=len(prep.node_refs)):
-            _posterior_window(prep, alpha[wi], beta[wi], results)
+            if plain is not None:
+                w = slice(wi, wi + 1)
+                posterior_(torch.from_numpy(out[w]), *(a[w] for a in plain))
+            _posterior_window(prep, out[wi], chains[wi], results)
 
 
-def _posterior_window(prep, alpha_w, beta_w, results):
-    # ---- posterior on host (genotype.cpp:1371-1546), vectorized per window ----
-    # Genotype grouping uses string-sorted keys in the reference
-    # (std::map<string>, genotype.cpp:1441-1459).  For GT values <= 9 the
-    # string order of "a/b/..." (digits sorted ascending) equals the
-    # lexicographic order of the ascending-sorted numeric tuples, so groups
-    # are formed with packed integer keys; rare nodes carrying GT >= 10 fall
-    # back to the exact string path.
-    s = len(prep.states)
+def _posterior_window(prep, out_w, chains_w, results):
+    """One window's records (genotype.cpp:1371-1546) from its posterior
+    rows ``out_w`` and, for its fallback nodes, their alpha and beta rows
+    ``chains_w[0][node]``, ``chains_w[1][node]``."""
     n = len(prep.node_refs)
     if n == 0:
         return
-    real = prep.kind == 1
-    a = alpha_w[:n, :s].astype(np.float64)
-    b = beta_w[:n, :s].astype(np.float64)
-    ab = a * b
-    den = ab.sum(axis=1)
-    safe_den = np.where(den != 0, den, 1.0)
-    post = np.where((den != 0)[:, None], ab / safe_den[:, None], 0.0)
-
-    # per-node GT values of the used haplotypes [n, U], gathered once
-    # from the per-chrom GT matrix during prep
-    G_nsp = prep.G_nu[:, prep.state_u]          # [n, S, P]
-    fallback = (G_nsp.max(axis=(1, 2)) > 9) & real
-
     P = prep.state_u.shape[1]
-    gts_sorted = np.sort(G_nsp, axis=2)          # ascending == sorted(str) for <=9
-    shifts = (8 * np.arange(P - 1, -1, -1)).astype(np.int64)
-    keys_ns = (gts_sorted << shifts).sum(axis=2)  # [n, S]
-
-    # group-by per node: stable sort by key, segment sums, best = max
-    # score with smallest key on ties (ascending scan with strict >)
-    order = np.argsort(keys_ns, axis=1, kind="stable")
-    ksort = np.take_along_axis(keys_ns, order, axis=1)
-    psort = np.take_along_axis(post, order, axis=1)
-    gstart = np.ones((n, s), bool)
-    gstart[:, 1:] = ksort[:, 1:] != ksort[:, :-1]
-    gid = np.cumsum(gstart, axis=1) - 1           # group index per position
-    last_in_group = np.ones((n, s), bool)
-    last_in_group[:, :-1] = gstart[:, 1:]
-    csum = np.cumsum(psort, axis=1)
-    # csum value just before each group's start, forward-filled within
-    # the group (csum is nondecreasing, so maximum.accumulate fills)
-    shifted = np.zeros_like(csum)
-    shifted[:, 1:] = csum[:, :-1]
-    base = np.maximum.accumulate(
-        np.where(gstart, shifted, -np.inf), axis=1
-    )
-    totals_end = np.where(last_in_group, csum - base, -np.inf)  # [n, s]
-    best_score_n = totals_end.max(axis=1)
-    # first group (smallest key) achieving the max
-    win_pos = np.argmax(totals_end == best_score_n[:, None], axis=1)
-    win_group = np.take_along_axis(gid, win_pos[:, None], axis=1)[:, 0]
-
-    # winner state: first (by si) strictly-max post among winner-group
-    # states, matching `if max_post < post[si]` with max_post starting 0
-    in_win = gid == win_group[:, None]            # positions in sorted order
-    win_mask = np.zeros((n, s), bool)             # by original si
-    np.put_along_axis(win_mask, order, in_win, axis=1)
-    post_w = np.where(win_mask, post, -np.inf)
-    max_post_n = post_w.max(axis=1)
-    win_si = np.argmax(post_w == max_post_n[:, None], axis=1)
-    has_winner = max_post_n > 0.0
-
-    # NAK/CAK/UK, vectorized over the prep tensors
-    nak_nu = (prep.bits_u * prep.kmask[:, :, None]).sum(axis=1)   # [n, U]
-    cak_num = (prep.c[:, :, None] * prep.bits_u
-               * prep.kmask[:, :, None]).sum(axis=1)              # [n, U]
-    uk_n = np.minimum(((prep.f <= 1) & prep.kmask).sum(axis=1), 255)
-
+    s = len(prep.states)
+    out_w = out_w[:n]
+    prob = probabilities(out_w).tolist()
+    win, uk = out_w[:, WINNER].tolist(), out_w[:, UK].tolist()
+    nak = out_w[:, NAK:NAK + P].tolist()
+    cak = out_w[:, NAK + P:NAK + 2 * P].tolist()
+    kind = prep.kind.tolist()
     hap2u = {hp: uj for uj, hp in enumerate(prep.used_haps)}
     with timing.span("post.records"):
         for ni, node in enumerate(prep.node_refs):
-            if not real[ni]:
+            if kind[ni] != 1:
                 continue
             rec_out = PosteriorRecord()
-            if fallback[ni]:
+            si = win[ni]
+            if si == FALLBACK:
+                # NAK/CAK of every used hap, for this node alone
+                hits = prep.bits_u[ni] * prep.kmask[ni, :, None]
+                post = post_rows(chains_w[0][ni][None, :s],
+                                 chains_w[1][ni][None, :s])[0]
                 _posterior_string_fallback(
-                    rec_out, prep, post[ni], node, nak_nu[ni], cak_num[ni],
-                    int(uk_n[ni]), hap2u,
+                    rec_out, prep, post, node, hits.sum(axis=0),
+                    (prep.c[ni, :, None] * hits).sum(axis=0), uk[ni], hap2u,
                 )
             else:
-                rec_out.probability = float(best_score_n[ni])
-                if has_winner[ni]:
-                    si = int(win_si[ni])
+                rec_out.probability = prob[ni]
+                if si >= 0:
                     rec_out.hap_vec = list(prep.states[si])
-                    rec_out.kmer_num_vec = []
-                    rec_out.kmer_avecov_vec = []
-                    for hp in rec_out.hap_vec:
-                        uj = hap2u[hp]
-                        num = int(nak_nu[ni, uj])
-                        rec_out.kmer_num_vec.append(num)
-                        rec_out.kmer_avecov_vec.append(
-                            float(cak_num[ni, uj]) / num if num else 0.0
-                        )
-                    rec_out.uk = int(uk_n[ni])
+                    rec_out.kmer_num_vec = nak[ni]
+                    rec_out.kmer_avecov_vec = [
+                        float(ck) / num if num else 0.0
+                        for num, ck in zip(nak[ni], cak[ni])
+                    ]
+                    rec_out.uk = uk[ni]
             results[(prep.chrom, node.start)] = rec_out
