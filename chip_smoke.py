@@ -8,8 +8,8 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. the kernel builds (csrc/join.cu, csrc/cbf.cu, csrc/fb.cu,
-     csrc/sketch.cu, csrc/emit.cu and csrc/post.cu, one nvcc each, started
-     together), timed;
+     csrc/sketch.cu, csrc/emit.cu, csrc/post.cu and csrc/prep.cu, one nvcc
+     each, started together), timed;
   3. the counting kernels of csrc/join.cu against their plain torch
      versions on the card, exactly equal on edge cases, each at its table's
      own key directory and at skewed ones: the join (count_join_) and the
@@ -26,8 +26,10 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      haplotypes; count_packed must have launched once per batch,
      emissions and forward_backward at least once, posterior as often as
      emissions (one launch a group), neither the torch emission body nor
-     the plain ``_scan`` on the card, and no window through the plain
-     posterior (whose alpha and beta are host copies), and S1's genotypes
+     the plain ``_scan`` on the card, no window through the plain
+     posterior (whose alpha and beta are host copies), every window's prep
+     through hap_mass (one launch a window) and gather_rows, none through
+     the host's numpy (also in phases 12 and 14), and S1's genotypes
      must agree with the VCF's truth at >= 99% of the sites; the first
      genotype of the process prints its emit seconds split into upload and
      device, and whether libcublas is mapped into the process before and
@@ -165,7 +167,14 @@ checkout; it imports nothing of JAX.  Phases, each of which must pass:
      P = 2, K = 128); each timed (the wrapper's call, a median of 7) beside
      its bound and the plain version (one host run); then that group tiled
      to a full group of 256 windows on the card: the kernel timed, and the
-     device bytes it reads and the peak allocated during the call.
+     device bytes it reads and the peak allocated during the call;
+ 18. the window prep's kernels (csrc/prep.cu) against their plain versions
+     on host copies, bit for bit and run to run, one launch a call, at the
+     benchmark cells' group (G = 4 windows of N = 5,854 nodes, ~56 rows a
+     node over 1,311,439 keys, 65 haplotypes) and at the potato panel's
+     widths (332 haplotypes, two used-hap words): hap_mass over one window
+     (the engine's launch) and over the group, and gather_rows, each timed
+     (a median of 7) beside its bytes bound and the plain version.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after.  Prints, before its last line, the kernels' JSON summary (launches
@@ -175,7 +184,8 @@ chromosome and phase 9's table for count_codes, at phase 9's contexts for
 the context sketch, at phase 14's group for the emissions (``ms`` the bare
 kernel, ``call_ms`` the wrapper's call; the S = 465, P = 4 and W = 2 groups'
 figures under ``s465``, ``p4``, ``w2``), at the cells' shape for the posterior
-(phase 14's group under ``big``),
+(phase 14's group under ``big``) and the window prep's kernels (the potato
+widths under ``potato``),
 and at phase 13's
 S = 120 group for forward_backward, with its fre-mode, layout, nonzero share
 and dense-bound figures and the S = 465 group's under ``s465``: the key add
@@ -230,7 +240,7 @@ from varigraph_tpu_torch.index.interop import save_reference_graph_bin
 from varigraph_tpu_torch.index.serialize import load_graph
 from varigraph_tpu_torch.io.fasta import read_fasta
 from varigraph_tpu_torch.ops import (cbf_cuda, emit_cuda, fb_cuda, join_cuda,
-                                     post_cuda, sketch_cuda)
+                                     post_cuda, prep_cuda, sketch_cuda)
 from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          ShardedCBF, cbf_add_codes_plain,
                                          cbf_add_plain, cbf_count_plain,
@@ -238,6 +248,7 @@ from varigraph_tpu_torch.ops.cbf import (GENOME_COLS, CountingBloomFilter,
                                          genome_rows, make_seeds)
 from varigraph_tpu_torch.ops.cuda_build import LAUNCHES
 from varigraph_tpu_torch.ops.emit import emissions_plain
+from varigraph_tpu_torch.ops.prep import PrepTables, node_rows
 from varigraph_tpu_torch.ops.exact_count import ExactGenomeCounter
 from varigraph_tpu_torch.ops.post import (WINNER, posterior_plain, probabilities,
                                           row_width)
@@ -247,7 +258,7 @@ from varigraph_tpu_torch.ops.sketch import (bitmap_bits, count_codes_plain,
                                             encode_contexts, key_bitmap_plain,
                                             sketch_contexts_plain)
 from varigraph_tpu_torch.ops.sketch_ref import encode_bases_np, sketch_ref
-from varigraph_tpu_torch.ops.table import (count_join, count_packed,
+from varigraph_tpu_torch.ops.table import (KmerTable, count_join, count_packed,
                                            directory_bits, directory_shift,
                                            key_directory)
 from varigraph_tpu_torch.parallel.mesh import Mesh
@@ -319,6 +330,12 @@ EMIT_BARE_LAUNCHES = 50                       # a bare-kernel timing's launches
 POST_CELL = dict(n=5854, S=120, P=2, K=128, nhap=65, gt_max=1,
                  fallback_share=0.001)
 POST_FULL_G = 256                              # engine_torch._WINDOW_GROUP
+# the window prep's kernels (phase 18): the cells' group (4 windows of 5,854
+# scored nodes, ~56 rows a node over a table of 1,311,439 keys, 65
+# haplotypes, 15 top and 16 used) and the potato panel's widths (332
+# haplotypes, 60 used: two used-hap words)
+PREP_CELL = dict(G=4, n=5854, M=1_311_439, nhap=65, n_used=16)
+PREP_POTATO = dict(G=4, n=5854, M=1_311_439, nhap=332, n_used=60)
 SKEWED_DIRECTORY_BITS = (1, 16)                # besides each table's own
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; int32
 # at 64 lanes an SM, a quarter of the data sheet's 67 TFLOP/s float32 (128
@@ -841,6 +858,23 @@ def check_posterior_on_card(launches, moved, where: str) -> None:
             or moved.get("post.plain_windows", 0)):
         fail(f"{where}: the posterior did not run on the card alone, once a "
              f"group")
+
+
+def check_prep_on_card(launches, moved, where: str) -> None:
+    """Fails unless every window's prep went through its kernels: a mass
+    launch a window (``prep.card_windows``), a gather launch a group (the
+    posterior's launches: one a group in these runs, whose groups each take
+    one emissions launch, as ``check_posterior_on_card`` holds), and no
+    window through the plain versions."""
+    n_mass, n_gather = launches.get("hap_mass", 0), launches.get("gather_rows", 0)
+    n_card = moved.get("prep.card_windows", 0)
+    n_groups = launches.get("posterior", 0)
+    print(f"  {where}: hap_mass launches {n_mass}, gather_rows launches "
+          f"{n_gather} (groups {n_groups}); windows prepped on the card "
+          f"{n_card}, by the plain versions {moved.get('prep.plain_windows', 0)}")
+    if (n_mass < 1 or n_gather < 1 or n_mass != n_card or n_gather != n_groups
+            or moved.get("prep.plain_windows", 0)):
+        fail(f"{where}: the window prep did not run on the card alone")
 
 
 def check_scoring_on_card(launches, calls, where: str) -> None:
@@ -1791,6 +1825,8 @@ def phase_mesh(device, work: str, cfg_path: str, counts: str, vcf4: str,
     check_scoring_on_card(LAUNCHES, calls, "genotype over the mesh")
     check_posterior_on_card(LAUNCHES, timing.counters_since(counters),
                             "genotype over the mesh")
+    check_prep_on_card(LAUNCHES, timing.counters_since(counters),
+                       "genotype over the mesh")
     if LAUNCHES["forward_backward"] < mesh.size:
         fail("genotype over the mesh did not launch forward_backward on "
              "every device")
@@ -2106,6 +2142,8 @@ def phase_big_genotype(device, work: str, big_vgt: str, haps, truth):
     check_scoring_on_card(launches, calls, f"the {BIG_MB} Mb genotype")
     check_posterior_on_card(launches, timing.counters_since(counters),
                             f"the {BIG_MB} Mb genotype")
+    check_prep_on_card(launches, timing.counters_since(counters),
+                       f"the {BIG_MB} Mb genotype")
     print(f"  launches {launches}")
     print("  phase timings:")
     print_timings(phase_timings(log_text), wall)
@@ -2784,6 +2822,180 @@ def post_full_group(cells) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 18
+
+def prep_group(G: int, n: int, M: int, nhap: int, n_used: int, seed: int):
+    """A synthetic group as the engine preps it: a table of M keys on the
+    card (hap words at bit density 1/2, coverage 0-59, the cells' frequency
+    mix), one chromosome's CSR of G * n nodes (0-112 rows a node, every
+    100th node 128), and G windows of n nodes each with 15 top and n_used
+    used haplotypes: (the card's table, its PrepTables, the CPU's
+    PrepTables, nodes, top, used) with nodes, top and used on the card."""
+    rng = np.random.default_rng(seed)
+    Wt = (nhap + 31) // 32
+    words = rng.integers(0, 1 << 32, (M, Wt), dtype=np.uint64).astype(np.uint32)
+    if nhap % 32:
+        words[:, -1] &= np.uint32((1 << (nhap % 32)) - 1)
+    keys = np.arange(1, M + 1, dtype=np.uint64) * np.uint64(7919)
+    cov = rng.integers(0, 60, M).astype(np.int32)
+    freq = rng.choice([0, 1, 1, 1, 2, 5], M).astype(np.uint8)
+    refflag = rng.random(M) < 0.2
+    lens = rng.integers(0, 113, G * n)
+    lens[::100] = 128
+    off = np.zeros(G * n + 1, np.int64)
+    off[1:] = np.cumsum(lens)
+    idx = rng.integers(0, M, int(off[-1]))
+    lp = rng.integers(0, 256, (int(off[-1]), (nhap + 7) // 8)).astype(np.uint8)
+    csr = {"chr1": (off, idx, lp)}
+    card = KmerTable.from_numpy(keys, cov, freq, words, refflag, nhap, "cuda")
+    host = KmerTable.from_numpy(keys, cov, freq, words, refflag, nhap, "cpu")
+    nodes = np.arange(G * n, dtype=np.int64).reshape(G, n)
+    top = np.zeros((G, Wt), np.uint32)
+    U = 32 * -(-n_used // 32)
+    used = np.full((G, U), -1, np.int32)
+    for g in range(G):
+        for h in rng.choice(nhap, 15, replace=False):
+            top[g, h >> 5] |= np.uint32(1 << (h & 31))
+        used[g, :n_used] = np.sort(rng.choice(nhap, n_used, replace=False))
+    return (card, PrepTables.upload(card, csr), PrepTables.upload(host, csr),
+            *(torch.from_numpy(a).cuda() for a in (nodes, top.view(np.int32), used)))
+
+
+def prep_bounds(tables: PrepTables, cov, nodes, U: int) -> dict[str, tuple[float, str]]:
+    """The least times of the mass over one window (the engine's launch),
+    of the mass over the group and of the gather: each row's index (and
+    for the gather its local bytes), each distinct table entry it reads
+    once (cov and freq; the hap words of the mass's counting rows, of
+    every row for the gather, and the ref flag), the nodes' offsets, and
+    the outputs."""
+    off = tables.off.cpu().numpy()
+    Wt = tables.hapbits.shape[1]
+    nb = tables.lp.shape[1]
+    nd = nodes.cpu().numpy()
+    G, N = nd.shape
+    idx = tables.idx.cpu().numpy()
+    counting = ((tables.freq.cpu().numpy() == 1)
+                & (np.minimum(cov.cpu().numpy(), 255) > 1))
+
+    def mass_bytes(v):
+        r = node_rows(off, v)
+        t = np.unique(idx[r])
+        return (16 * len(v) + 4 * len(r) + 5 * len(t)
+                + 4 * Wt * int(counting[t].sum()) + 8 * tables.nhap)
+
+    r = node_rows(off, nd.reshape(-1))
+    t = np.unique(idx[r])
+    gather = (16 * G * N + (4 + nb) * len(r) + (6 + 4 * Wt) * len(t)
+              + G * N * (4 + prep_cuda.MAX_KMERS * (4 + 8 * U // 32)))
+    return {"mass_window": bound(mass_bytes(nd[0]), 0),
+            "mass_group": bound(mass_bytes(nd.reshape(-1)), 0),
+            "gather": bound(gather, 0)}
+
+
+def phase_prep(device) -> dict:
+    """Phase 18: hap_mass and gather_rows against their plain versions at
+    the cells' group and at the potato panel's widths, bit for bit and run
+    to run, timed (medians of 7) beside their bytes bounds and the plain
+    versions (one host run; the mass's a window, the group's over G)."""
+    res = {}
+    for name, shape in (("cells", PREP_CELL), ("potato", PREP_POTATO)):
+        card, tables, host_tables, nodes, top, used = prep_group(**shape, seed=18)
+        G, N = nodes.shape
+        U = used.shape[1]
+        K = prep_cuda.MAX_KMERS
+
+        def outs(dev, g=G):
+            return (*(torch.empty((g, N, K), dtype=dt, device=dev) for dt in (
+                torch.uint8, torch.uint8, torch.bool, torch.bool)),
+                *(torch.empty((g, N, K, U // 32), dtype=torch.int32, device=dev)
+                  for _ in range(2)),
+                torch.empty((g, N), dtype=torch.int32, device=dev))
+
+        mass = torch.empty((G, shape["nhap"]), dtype=torch.int64, device=device)
+        mass1 = torch.empty((1, shape["nhap"]), dtype=torch.int64, device=device)
+        got = outs(device)
+        before = dict(LAUNCHES)
+        prep_cuda.hap_mass_(mass, nodes, tables, card.cov)
+        prep_cuda.gather_rows_(*got, nodes, top, used, tables, card.cov)
+        torch.cuda.synchronize()
+        if (LAUNCHES["hap_mass"] != before.get("hap_mass", 0) + 1
+                or LAUNCHES["gather_rows"] != before.get("gather_rows", 0) + 1):
+            fail(f"prep {name}: not one launch a call")
+        want_mass = torch.empty((G, shape["nhap"]), dtype=torch.int64)
+        want = outs("cpu")
+        t0 = time.perf_counter()
+        prep_cuda.hap_mass_(want_mass, nodes.cpu(), host_tables, card.cov.cpu())
+        mass_plain = (time.perf_counter() - t0) * 1e3 / G     # a window
+        t0 = time.perf_counter()
+        prep_cuda.gather_rows_(*want, nodes.cpu(), top.cpu(), used.cpu(),
+                               host_tables, card.cov.cpu())
+        gather_plain = (time.perf_counter() - t0) * 1e3
+        mass_same = torch.equal(mass.cpu(), want_mass)
+        diff = [int((a.cpu() != b).sum()) for a, b in zip(got, want)]
+        again = outs(device)
+        prep_cuda.gather_rows_(*again, nodes, top, used, tables, card.cov)
+        same = all(torch.equal(a, b) for a, b in zip(again, got))
+        kept = int(want[3].sum())
+        r = {"G": G, "N": N, "nhap": shape["nhap"], "Ww": U // 32,
+             "rows": int(tables.idx.numel()), "kept_rows": kept,
+             "mass_window_ms": time_ms(lambda: prep_cuda.hap_mass_(
+                 mass1, nodes[:1], tables, card.cov)),
+             "mass_group_ms": time_ms(lambda: prep_cuda.hap_mass_(
+                 mass, nodes, tables, card.cov)),
+             "gather_ms": time_ms(lambda: prep_cuda.gather_rows_(
+                 *got, nodes, top, used, tables, card.cov)),
+             "mass_plain_ms": mass_plain, "gather_plain_ms": gather_plain,
+             "tables_bytes": tables.nbytes()}
+        for key, (ms, by) in prep_bounds(tables, card.cov, nodes, U).items():
+            r[f"{key}_bound_ms"], r[f"{key}_bound_by"] = ms, by
+        print(f"  {name}: G {G}, N {N}, {shape['nhap']} haplotypes, Ww {U // 32}, "
+              f"{r['rows']} rows, {kept} kept; mass equal to plain {mass_same}, "
+              f"gather outputs differing from plain {diff}, two runs "
+              f"bit-identical {same}; hap_mass a window "
+              f"{r['mass_window_ms']:.4f} ms (bound "
+              f"{r['mass_window_bound_ms']:.4f}), the group "
+              f"{r['mass_group_ms']:.4f} ms (bound {r['mass_group_bound_ms']:.4f}, "
+              f"plain {mass_plain:.1f}); gather_rows {r['gather_ms']:.4f} ms "
+              f"(bound {r['gather_bound_ms']:.4f}, plain {gather_plain:.1f}); "
+              f"tables {r['tables_bytes']} bytes")
+        if not mass_same or any(diff) or not same or not kept:
+            fail(f"prep {name}: a kernel differs from its plain version")
+        # a full group (engine_torch._WINDOW_GROUP windows, these G tiled):
+        # the gather's outputs on the card, which the engine holds for a
+        # group and, prepping one group ahead, for the next one too; the
+        # posterior keeps c, f, kmask and bits past the emissions
+        del got, want, again
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rep_g = POST_FULL_G // G
+        full_in = (nodes.repeat(rep_g, 1), top.repeat(rep_g, 1),
+                   used.repeat(rep_g, 1))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        full = outs(device, POST_FULL_G)
+        prep_cuda.gather_rows_(*full, *full_in, tables, card.cov)
+        torch.cuda.synchronize()
+        r.update(
+            full_G=POST_FULL_G,
+            full_rows_bytes=sum(t.numel() * t.element_size() for t in full),
+            full_kept_bytes=sum(full[i].numel() * full[i].element_size()
+                                for i in (0, 1, 3, 4)),
+            full_peak_bytes=torch.cuda.max_memory_allocated() - base,
+            full_gather_ms=time_ms(lambda: prep_cuda.gather_rows_(
+                *full, *full_in, tables, card.cov)))
+        print(f"  {name}, a full group of {POST_FULL_G} windows: gather_rows "
+              f"{r['full_gather_ms']:.3f} ms; its outputs "
+              f"{r['full_rows_bytes'] / 2**30:.3f} GiB (peak above the tables "
+              f"{r['full_peak_bytes'] / 2**30:.3f} GiB), of which the "
+              f"posterior keeps c, f, kmask and bits "
+              f"{r['full_kept_bytes'] / 2**30:.3f} GiB; with the next group "
+              f"prepped ahead {2 * r['full_rows_bytes'] / 2**30:.3f} GiB")
+        res[name] = r
+        del card, tables, host_tables, full, full_in
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2810,7 +3022,8 @@ def main() -> int:
         mod.build()
         return os.path.relpath(mod.LIBRARY, ROOT), time.perf_counter() - t0
 
-    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda, emit_cuda, post_cuda)
+    libs = (join_cuda, cbf_cuda, fb_cuda, sketch_cuda, emit_cuda, post_cuda,
+            prep_cuda)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for lib, secs in pool.map(timed_build, libs):
             print(f"  built {lib} in {secs:.2f} s")
@@ -2837,6 +3050,7 @@ def main() -> int:
         nbatches = check_counted_per_batch(log_text, LAUNCHES, "genotype")
         check_scoring_on_card(LAUNCHES, calls, "genotype")
         check_posterior_on_card(LAUNCHES, timing.counters_since(counters), "genotype")
+        check_prep_on_card(LAUNCHES, timing.counters_since(counters), "genotype")
         m = re.search(r"\(table on (\S+)\)", log_text)
         table_dev = m.group(1) if m else "?"
         print(f"  count_packed launches {LAUNCHES['count_packed']}, batches "
@@ -2976,6 +3190,10 @@ def main() -> int:
     post = phase_post(device, big_post_group)
     del big_post_group
 
+    print("== 18. the window prep's kernels against their plain versions "
+          "(tolerance: none, bit for bit), then timed")
+    prep = phase_prep(device)
+
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(f"  main-path launches: {dict(main_launches)}")
     source = "varigraph_tpu_torch/csrc/{}.cu"
@@ -3096,6 +3314,18 @@ def main() -> int:
             "float_diffs")},
         "full": post["full"],
     })
+    # the cells' group (the potato panel's widths under ``potato``); neither
+    # replaces a TPU kernel, and no single PyTorch call computes either
+    for name, key in (("hap_mass", "mass_window"), ("gather_rows", "gather")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source.format("prep"),
+            "replaces": None, "launches": main_launches[name], "max_abs_err": 0,
+            "ms": prep["cells"][f"{key}_ms"],
+            "plain_ms": prep["cells"][f"{key.split('_')[0]}_plain_ms"],
+            "bound_ms": prep["cells"][f"{key}_bound_ms"],
+            "bound_by": prep["cells"][f"{key}_bound_by"], "library_ms": None,
+            "cells": prep["cells"], "potato": prep["potato"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -338,18 +338,21 @@ def test_the_card_paths_host_side_matches_the_parent(monkeypatch):
     # two launches, as two emissions launches of one and two windows
     kept = [(0, 1, c[0:1], f[0:1], kmask[0:1], bits[0:1]),
             (1, 3, c[1:3], f[1:3], kmask[1:3], bits[1:3])]
-    out, chains = et._posterior_on_card(a, b, kind, gt, su, sm, kept, arrays[2])
+    out, chains, kind_host = et._posterior_on_card(a, b, kind, gt, su, sm, kept)
     moved = timing.counters_since(before)
+    assert np.array_equal(kind_host, arrays[2])
     got = {}
     et._posterior_window_group(group, out, chains, got)
     assert_same_records(got, parent_records(group))
-    n_fb = sum(len(ca) for ca, _ in chains)
+    n_fb = sum(len(ca) for ca, *_ in chains)
     assert n_fb == int((out[..., WINNER] == FALLBACK).sum()) > 0
-    for g, (ca, cb) in enumerate(chains):
-        assert set(ca) == set(cb) == set(np.nonzero(out[g, :, WINNER] == FALLBACK)[0])
-        for n in ca:
-            assert np.array_equal(ca[n], arrays[0][g, n])
-            assert np.array_equal(cb[n], arrays[1][g, n])
+    for g, rows in enumerate(chains):
+        fallback = set(np.nonzero(out[g, :, WINNER] == FALLBACK)[0])
+        assert all(set(r) == fallback for r in rows)
+        # alpha, beta and the node's k-mer rows: c, kmask, bits
+        for r, j in zip(rows, (0, 1, 6, 8, 9)):
+            for n in r:
+                assert np.array_equal(r[n], arrays[j][g, n])
     assert moved["post.fallback_nodes"] == n_fb
     assert moved["post.card_nodes"] == int((arrays[2] == 1).sum()) - n_fb
     assert moved["post.plain_windows"] == 3        # the plain stand-in
@@ -364,7 +367,7 @@ def test_launches_that_miss_a_window_are_an_error(cover):
     kept = [(g0, g1, c[g0:g1], f[g0:g1], kmask[g0:g1], bits[g0:g1])
             for g0, g1 in cover]
     with pytest.raises(RuntimeError, match="do not cover the group"):
-        et._posterior_on_card(a, b, kind, gt, su, sm, kept, arrays[2])
+        et._posterior_on_card(a, b, kind, gt, su, sm, kept)
 
 
 def test_the_mesh_gathers_alpha_and_beta_on_the_groups_device(monkeypatch):

@@ -217,13 +217,18 @@ def test_each_sample_has_one_span_tree(genotyped):
             assert w.parent == scoring.id and w.thread != s.thread
             assert scoring.t0 <= w.t0 <= w.t1 <= scoring.t1
         for child, window in (("prep.select", "prep.window"),
-                              ("prep.gather", "prep.window"),
                               ("post.records", "post.window")):
             kids = [sp for sp in mine if sp.name == child]
             assert len(kids) == len([sp for sp in mine if sp.name == window])
             for k in kids:
                 w = by_id[k.parent]
                 assert w.name == window and w.t0 <= k.t0 <= k.t1 <= w.t1
+        # the k-mer gather, a group's on the prep worker after its windows
+        gathers = [sp for sp in mine if sp.name == "prep.gather"]
+        assert gathers and sum(g.attrs["windows"] for g in gathers) == len(posts)
+        for g in gathers:
+            assert g.parent == scoring.id and g.thread != s.thread
+            assert scoring.t0 <= g.t0 <= g.t1 <= scoring.t1
         # on the main thread: the waits and each group's steps in scoring;
         # the feed's spans on the reader threads, under the counting phase
         for name in ("engine.wait_prep", "engine.wait_post", "group.assemble",

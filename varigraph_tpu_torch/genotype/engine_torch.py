@@ -26,7 +26,17 @@ src/genotype.cpp -- see its docstring for the file:line map):
     host.  Its plain version, ``ops/post.posterior_plain``, is the JAX
     engine's vectorised float64 numpy, for alpha and beta on the CPU.  The
     records are built on the host.
-  * window prep stays on the host, copied from the JAX engine.
+  * window prep: each window's haplotype selection and, for each of its
+    scored nodes, the k-mer rows that meet the selected haplotypes.  On the
+    card (the table's device) the hand kernels ``csrc/prep.cu``
+    (``ops/prep_cuda.py``) walk the nodes' CSR rows in device copies of the
+    table and the CSR (``ops/prep.PrepTables``, made once a graph index):
+    one launch a window sums each haplotype's k-mer mass, whose nhap sums
+    come back for the Dirichlet draw, and one a group gathers each node's
+    kept rows straight into the group's emission and posterior inputs; only
+    each node's kind comes back, after the posterior.  On the CPU the same
+    calls run their plain versions, the JAX engine's numpy lines
+    (``ops/prep.py``).
   * several devices and processes (engine_jax.py:537-551,604-625,781-784):
     each process scores its round-robin share of the windows and the
     results merge at the end (parallel/dist.py); within a process, a mesh
@@ -38,20 +48,26 @@ Float32 on the device; the oracle engine is the precision reference.
 
 Spans (``utils/timing.py``): each window's prep on the prep worker
 (``prep.window``, and in it ``prep.select``, the haplotype selection and
-states, and ``prep.gather``, the k-mer gather and unpack) and posterior on
-the posterior worker (``post.window``, and in it ``post.records``, the
-per-node loop), both under the caller's span; on the calling thread, the
-waits for them (``engine.wait_prep``, ``engine.wait_post``) and each group's
-``group.assemble``, ``group.emit`` and ``group.fb``, from which the
-``engine timing:`` line is summed.  Nothing in the emissions step waits for
-the card, so on the card ``group.emit`` (the line's ``emit``) is the host's
-share alone: the pageable copies of the inputs and the kernel's enqueue.
-The kernel runs on into ``group.fb``, which ends in a copy back to the host
-(on the card, of the posterior kernel's rows); its own device time is read
-from a profiler trace (``emissions_kernel``).  Counters: ``post.card_nodes``
-(records from the kernel's rows), ``post.fallback_nodes`` (string-keyed
-records from alpha and beta rows copied off the card),
-``post.plain_windows`` (windows through the plain posterior).
+states with the mass's launch and its sums' copy back); a group's
+``prep.gather``, on the prep worker after its windows (the node lists'
+copies and the gather's launch: on the card its enqueue alone, its device
+time being in a profiler trace; on the CPU the plain gather); ``prep.tables``
+the tables' copies, once a graph index; the posterior on the posterior worker (``post.window``, and in it
+``post.records``, the per-node loop), both under the caller's span; on the
+calling thread, the waits for them (``engine.wait_prep``,
+``engine.wait_post``) and each group's ``group.assemble``, ``group.emit``
+and ``group.fb``, from which the ``engine timing:`` line is summed.  Nothing
+in the emissions step waits for the card, so on the card ``group.emit``
+(the line's ``emit``) is the host's share alone: the copies of the
+host-built inputs and the kernel's enqueue.  The kernel runs on into
+``group.fb``, which ends in a copy back to the host (on the card, of the
+posterior kernel's rows and the nodes' kinds); its own device time is read
+from a profiler trace (``emissions_kernel``).  Counters:
+``prep.card_windows`` and ``prep.plain_windows`` (windows prepped by the
+kernels, by the plain versions), ``post.card_nodes`` (records from the kernel's
+rows), ``post.fallback_nodes`` (string-keyed records from alpha, beta and
+k-mer rows copied off the card), ``post.plain_windows`` (windows through
+the plain posterior).
 """
 
 from __future__ import annotations
@@ -67,8 +83,10 @@ from ..index.structs import GraphIndex
 from ..ops.emit_cuda import emissions_
 from ..ops.fb_cuda import forward_backward
 from ..ops.post import (FALLBACK, NAK, UK, WINNER, post_rows, probabilities,
-                        row_width)
+                        row_width, unpack_words)
 from ..ops.post_cuda import posterior_
+from ..ops.prep import PrepTables
+from ..ops.prep_cuda import gather_rows_, hap_mass_
 from ..ops.table import pack_hapbits
 from ..parallel import dist
 from ..parallel.mesh import Mesh
@@ -82,7 +100,7 @@ from .engine_np import (
     poisson_interval,
     window_rng_seed,
 )
-from .hapselect import dirichlet_top_haps, window_hap_counts
+from .hapselect import dirichlet_top_haps
 
 MAX_NODE_KMERS = 128
 
@@ -289,26 +307,14 @@ def _transition_logs(dist: np.ndarray, nhap: int):
         )
 
 
-def _csr_flat(off: np.ndarray, node_idx: np.ndarray) -> np.ndarray:
-    """Flat row indices of the CSR segments for the given nodes, in node
-    order: concat(arange(off[i], off[i+1]) for i in node_idx), vectorized."""
-    lens = off[node_idx + 1] - off[node_idx]
-    total = int(lens.sum())
-    if total == 0:
-        return np.empty(0, np.int64)
-    cum0 = np.zeros(len(node_idx), np.int64)
-    np.cumsum(lens[:-1], out=cum0[1:])
-    return np.repeat(off[node_idx] - cum0, lens) + np.arange(total, dtype=np.int64)
-
-
 class _WindowPrep:
-    """Host-side gather of one window's tensors.
+    """One window's prep: the haplotype selection from its k-mer mass
+    (``hap_mass_`` on ``tables``, the graph index's ``ops/prep.PrepTables``),
+    the states and the per-node host arrays.  Its k-mer rows are gathered
+    for its whole group (``_gather_group``), and ``kind`` is set once the
+    group's posterior has run."""
 
-    Haplotype bits arrive packed ([M, W] uint32); only this window's gathered
-    rows are unpacked, so host memory stays bounded at genome scale."""
-
-    def __init__(self, gi, cfg, chrom, lo, hi, rng, cov_u8, freq_np, hap_words,
-                 refflag, hap_cov):
+    def __init__(self, gi, cfg, chrom, lo, hi, rng, hap_cov, tables):
         self.chrom = chrom
         nodes = gi.graph.nodes[chrom]
         self.cfg = cfg
@@ -316,12 +322,11 @@ class _WindowPrep:
 
         gt_len = gi.graph.gt_len[chrom]
         variant_idx = np.arange(lo, hi, dtype=np.int64)[gt_len[lo:hi] > 1]
-        tbl_off, tbl_idx, tbl_lp = gi.graph.tbl_csr[chrom]
         with timing.span("prep.select"):
-            counts = window_hap_counts(
-                [tbl_idx[_csr_flat(tbl_off, variant_idx)]],
-                cov_u8, freq_np, hap_words, nhap,
-            )
+            ids = torch.from_numpy(variant_idx + tables.base[chrom])[None]
+            mass = torch.empty((1, nhap), dtype=torch.int64, device=tables.device)
+            hap_mass_(mass, ids.to(tables.device), tables, gi.table.cov)
+            counts = mass[0].cpu().numpy().astype(np.uint64)
             haploid_num = min(cfg.haploid_num, nhap)
             self.top_hap, self.score_map = dirichlet_top_haps(counts, haploid_num, rng)
             self.states = increment_vector(
@@ -353,16 +358,6 @@ class _WindowPrep:
         self.lower, self.upper = lower, upper
 
         n = len(self.node_refs)
-        U = len(self.used_haps)
-        K = MAX_NODE_KMERS
-        self.c = np.zeros((n, K), np.int32)
-        self.f = np.zeros((n, K), np.int32)
-        self.flag = np.zeros((n, K), bool)
-        self.kmask = np.zeros((n, K), bool)
-        self.bits_u = np.zeros((n, K, U), np.uint8)
-        self.local_u = np.zeros((n, K, U), np.uint8)
-        self.kind = np.ones(n, np.int32)
-
         starts = gi.graph.starts_np[chrom][cand]
         ends = gi.graph.ends_np[chrom][cand]
 
@@ -372,37 +367,8 @@ class _WindowPrep:
         self.G_nu = gi.graph.gt_submatrix(chrom, cand, self.used_haps)
         self.gt0_u = self.G_nu == 0
 
-        # flat gather across all nodes of the window: slice the resolved
-        # per-chromosome CSR (no per-node numpy calls or concatenations)
-        with timing.span("prep.gather"):
-            lens = tbl_off[cand + 1] - tbl_off[cand]
-            if lens.sum() > 0:
-                flat_rows = _csr_flat(tbl_off, cand)
-                flat_idx = tbl_idx[flat_rows]
-                node_of = np.repeat(np.arange(n, dtype=np.int64), lens)
-                all_local = tbl_lp[flat_rows]
-                from ..ops.table import unpack_hapbits
-
-                rows_flat = unpack_hapbits(hap_words[flat_idx], nhap)
-                keep_flat = rows_flat[:, self.top_hap].any(axis=1)
-                act_flat = flat_idx[keep_flat]
-                act_node = node_of[keep_flat]
-                counts = np.bincount(act_node, minlength=n)
-                offs = np.zeros(n + 1, np.int64)
-                np.cumsum(counts, out=offs[1:])
-                pos = np.arange(len(act_flat), dtype=np.int64) - offs[act_node]
-                self.kind[counts == 0] = 2
-                self.c[act_node, pos] = cov_u8[act_flat]
-                self.f[act_node, pos] = freq_np[act_flat]
-                self.flag[act_node, pos] = refflag[act_flat]
-                self.kmask[act_node, pos] = True
-                self.bits_u[act_node, pos] = rows_flat[keep_flat][:, self.used_haps]
-                unpacked = np.unpackbits(
-                    all_local[keep_flat], axis=1, bitorder="little"
-                )
-                self.local_u[act_node, pos] = unpacked[:, self.used_haps]
-            else:
-                self.kind[:] = 2
+        timing.count("prep.card_windows" if tables.device.type == "cuda"
+                     else "prep.plain_windows")
 
         # distances between chain nodes (resets update anchors but do not
         # score -- genotype.cpp:371-374); vectorized shift instead of a
@@ -430,6 +396,56 @@ class _WindowPrep:
                 ],
                 np.float32,
             )
+
+
+def _group_dims(group) -> tuple[int, int, int]:
+    """(N, S, U) of a group: its largest window, state count and used-hap
+    count, U a multiple of 32 so that hap bits pack into u32 words."""
+    return (max(len(p_.node_refs) for p_ in group),
+            max(len(p_.states) for p_ in group),
+            32 * -(-max(len(p_.used_haps) for p_ in group) // 32))
+
+
+def _gather_group(group, tables, cov) -> tuple[torch.Tensor, ...]:
+    """The group's k-mer rows, one ``gather_rows_`` call: (c, f, flag,
+    kmask, bits, local, kind) on the tables' device, padded as
+    ``genotype_torch`` pads the group."""
+    G = len(group)
+    N, _, U = _group_dims(group)
+    K = MAX_NODE_KMERS
+    Wt = tables.hapbits.shape[1]
+    nodes = np.full((G, N), -1, np.int64)
+    top = np.zeros((G, 32 * Wt), np.uint8)
+    used = np.full((G, U), -1, np.int32)
+    for wi, prep in enumerate(group):
+        nodes[wi, :len(prep.node_idx)] = prep.node_idx + tables.base[prep.chrom]
+        top[wi, prep.top_hap] = 1
+        used[wi, :len(prep.used_haps)] = prep.used_haps
+    dev = tables.device
+    out = (*(torch.empty((G, N, K), dtype=dt, device=dev) for dt in (
+        torch.uint8, torch.uint8, torch.bool, torch.bool)),
+        *(torch.empty((G, N, K, U // 32), dtype=torch.int32, device=dev)
+          for _ in range(2)),
+        torch.empty((G, N), dtype=torch.int32, device=dev))
+    gather_rows_(*out, torch.from_numpy(nodes).to(dev),
+                 torch.from_numpy(pack_hapbits(top).view(np.int32)).to(dev),
+                 torch.from_numpy(used).to(dev), tables, cov)
+    return out
+
+
+def _prep_tables(gi) -> PrepTables:
+    """The table's and the CSR's copies the prep reads, on the table's
+    device, made at the graph index's first genotype and kept on it
+    (``GraphIndex.prep_tables``)."""
+    t = gi.prep_tables
+    if t is None:
+        with timing.span("prep.tables") as sp:
+            t = PrepTables.upload(gi.table, gi.graph.tbl_csr)
+            gi.prep_tables = t
+        sp.attrs["bytes"] = t.nbytes()
+        log(f"window prep's tables on {t.device}: {t.nbytes()} bytes",
+            func="genotype_torch")
+    return t
 
 
 def state_overlap(states: list[list[int]]) -> np.ndarray:
@@ -499,30 +515,26 @@ def _forward_backward_mesh(mesh: Mesh, logE, *args, fre_mode: bool, P: int):
 
 
 def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
-                   host_arrays=None, device: torch.device | str | None = None,
+                   device: torch.device | str | None = None,
                    mesh: Mesh | None = None,
                    ) -> dict[tuple[str, int], PosteriorRecord]:
     """Score every window; returns {(chrom, start): PosteriorRecord}.
 
     device: where emissions and forward/backward run (default: the table's
-    device).  mesh: with more than one device, each group's forward/backward
-    is split over its devices by window.  In a multi-process run this
-    process scores every n-th window and the results of all processes are
-    merged.  Windows are scored in groups of up to _WINDOW_GROUP; each
-    group is padded only to its own largest window, state count and
-    used-hap count (U a multiple of 32, so hap bits pack into u32 words)."""
+    device); the window prep runs on the table's device, its kernels on the
+    card, their plain versions on the CPU.  mesh: with more than one device, each group's
+    forward/backward is split over its devices by window.  In a
+    multi-process run this process scores every n-th window and the results
+    of all processes are merged.  Windows are scored in groups of up to
+    _WINDOW_GROUP; each group is padded only to its own largest window,
+    state count and used-hap count (U a multiple of 32, so hap bits pack
+    into u32 words)."""
     device = torch.device(device) if device is not None else gi.table.device
     # seconds by step, summed from the main thread's spans
     _t = {"prep": 0.0, "assemble": 0.0, "emit": 0.0, "fb": 0.0, "post": 0.0}
     # the span the workers' spans belong to (the caller's phase.scoring)
     scoring = timing.current()
-    if host_arrays is not None:
-        cov_u8, freq_np, hap_words, refflag = host_arrays
-    else:
-        cov_u8 = gi.table.cov_u8()
-        freq_np = gi.table.freq_np()
-        hap_words = gi.table.hap_words_np()
-        refflag = gi.table.refflag_np()
+    tables = _prep_tables(gi)
 
     # geometric-model scalars
     p = get_error_param(float(np.float32(hap_cov)))
@@ -574,8 +586,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             starts = gi.graph.starts[chrom]
             with timing.span("prep.window", parent=scoring, chrom=chrom,
                              start=starts[lo] if lo < len(starts) else 0) as sp:
-                prep = _WindowPrep(gi, cfg, chrom, lo, hi, rng, cov_u8, freq_np,
-                                   hap_words, refflag, hap_cov)
+                prep = _WindowPrep(gi, cfg, chrom, lo, hi, rng, hap_cov, tables)
             sp.attrs.update(nodes=len(prep.node_refs), states=len(prep.states))
             log(
                 f"Haplotype selection results for {chrom}-"
@@ -601,25 +612,27 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     post_fut = None
 
     def take():
-        return list(itertools.islice(it, _WINDOW_GROUP))
+        """The next group's windows and its gathered k-mer rows
+        (``_gather_group``)."""
+        group = list(itertools.islice(it, _WINDOW_GROUP))
+        if not group:
+            return group, None
+        with timing.span("prep.gather", parent=scoring, windows=len(group)):
+            return group, _gather_group(group, tables, gi.table.cov)
 
     try:
         fut = pool.submit(take)
         while True:
             # only the NON-overlapped prep time counts
             with timing.span("engine.wait_prep") as sp:
-                group = fut.result()
+                group, rows = fut.result()
             _t["prep"] += sp.seconds
             if not group:
                 break
             fut = pool.submit(take)
             with timing.span("group.assemble", windows=len(group)) as sp:
                 G = len(group)
-                N = max(len(p_.node_refs) for p_ in group)
-                S = max(len(p_.states) for p_ in group)
-                U = 32 * -(-max(len(p_.used_haps) for p_ in group) // 32)
-                Ww = U // 32
-                kind_all = np.zeros((G, N), np.int32)
+                N, S, U = _group_dims(group)
                 lrf = np.zeros((G, N), np.float32)
                 lnrf = np.zeros((G, N), np.float32)
                 lrb = np.zeros((G, N), np.float32)
@@ -627,32 +640,17 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 ov_all = np.zeros((G, S, S), np.int32)
                 lw_all = np.zeros((G, S), np.float32)
                 sm_all = np.zeros((G, S), bool)
-                c_all = np.zeros((G, N, K), np.uint8)
-                f_all = np.zeros((G, N, K), np.uint8)
-                flag_all = np.zeros((G, N, K), bool)
-                kmask_all = np.zeros((G, N, K), bool)
-                bits_all = np.zeros((G, N, K, Ww), np.uint32)
-                local_all = np.zeros((G, N, K, Ww), np.uint32)
                 gt0_all = np.zeros((G, N, U), bool)
                 gt_all = np.zeros((G, N, U), np.uint8)
                 su_all = np.zeros((G, S, P), np.int32)
                 for wi, prep in enumerate(group):
                     n = len(prep.node_refs)
                     s = len(prep.states)
-                    bp = pack_hapbits(prep.bits_u.reshape(n * K, -1)).reshape(n, K, -1)
-                    lp = pack_hapbits(prep.local_u.reshape(n * K, -1)).reshape(n, K, -1)
-                    bits_all[wi, :n, :, : bp.shape[2]] = bp
-                    local_all[wi, :n, :, : lp.shape[2]] = lp
                     gt0_all[wi, :n, : prep.gt0_u.shape[1]] = prep.gt0_u
                     # the posterior's GT values, saturated: above 9 is all
                     # it tells apart there
                     gt_all[wi, :n, : prep.G_nu.shape[1]] = np.minimum(prep.G_nu, 255)
                     su_all[wi, :s] = prep.state_u
-                    c_all[wi, :n] = prep.c
-                    f_all[wi, :n] = prep.f
-                    flag_all[wi, :n] = prep.flag
-                    kmask_all[wi, :n] = prep.kmask
-                    kind_all[wi, :n] = prep.kind
                     lrf[wi, :n] = prep.log_rec_f
                     lnrf[wi, :n] = prep.log_norec_f
                     lrb[wi, :n] = prep.log_rec_b
@@ -674,7 +672,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 scalars = tuple(float(np.float32(x)) for x in (
                     hap_cov, lo_w, up_w, np.log(p), np.log(q), log_prior))
                 if device.type == "cuda":
-                    row_bytes = N * (K * (4 + 8 * Ww) + U)
+                    row_bytes = N * (K * (4 + 8 * U // 32) + U)
                     gc, nc = max(1, _EMIT_UPLOAD_BYTES // row_bytes), N
                 elif N <= _EMIT_ROWS:
                     gc, nc = max(1, _EMIT_ROWS // N), N
@@ -690,11 +688,11 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                     g1 = g0 + gc
                     for n0 in range(0, N, nc):
                         n1 = n0 + nc
-                        # the host dtypes: u8 counts, bool flags, u32 words as int32
-                        inputs = tuple(dev(a[g0:g1, n0:n1]) for a in (
-                            c_all, f_all, flag_all, kmask_all,
-                            bits_all.view(np.int32), local_all.view(np.int32),
-                            gt0_all))
+                        # u8 counts, bool flags, u32 words as int32, where
+                        # the prep gathered them (on the card, there already)
+                        inputs = tuple(
+                            a[g0:g1, n0:n1].to(device).contiguous()
+                            for a in (*rows[:6], torch.from_numpy(gt0_all)))
                         whole = n0 == 0 and n1 >= N
                         out = (logE[g0:g1] if whole else torch.empty(
                             inputs[0].shape[:2] + (S,), dtype=torch.float32,
@@ -706,6 +704,10 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                             c_d, f_d, _, kmask_d, bits_d, _, _ = inputs
                             kept.append((g0, g1, c_d, f_d, kmask_d, bits_d))
                 del inputs
+                # what the posterior reads (on the card through ``kept``);
+                # flag and local, read by the emissions alone, go now
+                c_r, f_r, _, kmask_r, bits_r, _, kind_r = rows
+                del rows
             _t["emit"] += sp.seconds
 
             # the forward/backward, and on the card the posterior kernel
@@ -713,7 +715,7 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
             # only its rows come back.  Host alpha and beta (the CPU) go to
             # the posterior worker for the plain posterior.
             with timing.span("group.fb") as sp:
-                kind_d = dev(kind_all)
+                kind_d = kind_r.to(device)
                 fb_args = (kind_d, dev(lrf), dev(lnrf), dev(lrb), dev(lnrb),
                            dev(ov_all), dev(lw_all), sm_d)
                 if mesh is not None:
@@ -722,16 +724,21 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
                 else:
                     alpha, beta = _forward_backward(logE, *fb_args, fre_mode, P)
                 if alpha.device.type == "cuda":
-                    out, chains = _posterior_on_card(alpha, beta, kind_d, dev(gt_all),
-                                                     su_d, sm_d, kept, kind_all)
+                    out, chains, kind = _posterior_on_card(
+                        alpha, beta, kind_d, dev(gt_all), su_d, sm_d, kept)
                     plain = None
                 else:
                     out = np.empty((G, N, row_width(P)), np.int32)
-                    chains = [(a.numpy(), b.numpy()) for a, b in zip(alpha, beta)]
-                    plain = (alpha, beta, *(torch.from_numpy(a) for a in (
-                        kind_all, gt_all, su_all, sm_all, c_all, f_all, kmask_all,
-                        bits_all.view(np.int32))))
-                del kept, alpha, beta
+                    chains = None
+                    kind = kind_d.cpu()
+                    plain = (alpha, beta, kind, *(torch.from_numpy(a) for a in (
+                        gt_all, su_all, sm_all)),
+                        *(a.cpu() for a in (c_r, f_r, kmask_r, bits_r)))
+                    kind = kind.numpy()
+                # the records' node kinds
+                for wi, prep in enumerate(group):
+                    prep.kind = kind[wi, :len(prep.node_refs)]
+                del kept, alpha, beta, c_r, f_r, kmask_r, bits_r, kind_r
             _t["fb"] += sp.seconds
 
             if post_fut is not None:
@@ -760,12 +767,13 @@ def genotype_torch(gi: GraphIndex, cfg, hap_cov: float, seed: int,
     return results
 
 
-def _posterior_on_card(alpha, beta, kind_d, gt_d, su_d, sm_d, kept, kind_all):
+def _posterior_on_card(alpha, beta, kind_d, gt_d, su_d, sm_d, kept):
     """The posterior kernel over a group on the card, one launch for each
     emissions launch ``kept`` holds (its window range and the c, f, kmask and
-    bits it uploaded), which must cover the group in order; returns the rows,
-    copied to the host, and each window's alpha and beta rows of its fallback
-    nodes, ({node: alpha row}, {node: beta row})."""
+    bits it read), which must cover the group in order.  Returns the rows
+    and the group's kinds, copied to the host, and each window's rows of its
+    fallback nodes, ({node: alpha row}, {node: beta row}, {node: c row},
+    {node: kmask row}, {node: bits row})."""
     G, N, S = alpha.shape
     P = su_d.shape[2]
     out_d = torch.empty((G, N, row_width(P)), dtype=torch.int32, device=alpha.device)
@@ -780,8 +788,9 @@ def _posterior_on_card(alpha, beta, kind_d, gt_d, su_d, sm_d, kept, kind_all):
     if done != G:
         raise RuntimeError("the posterior's launches do not cover the group")
     out = out_d.cpu().numpy()
+    kind = kind_d.cpu().numpy()
     gi, ni = np.nonzero(out[..., WINNER] == FALLBACK)
-    chains = [({}, {}) for _ in range(G)]
+    chains = [({}, {}, {}, {}, {}) for _ in range(G)]
     if len(gi):
         at = (torch.from_numpy(gi).to(alpha.device),
               torch.from_numpy(ni).to(alpha.device))
@@ -789,19 +798,34 @@ def _posterior_on_card(alpha, beta, kind_d, gt_d, su_d, sm_d, kept, kind_all):
                               beta[at].cpu().numpy()):
             chains[g][0][n] = a
             chains[g][1][n] = b
-    timing.count("post.card_nodes", int((kind_all == 1).sum()) - len(gi))
+        for g0, g1, c, _, kmask, bits in kept:
+            sel = np.flatnonzero((gi >= g0) & (gi < g1))
+            if not len(sel):
+                continue
+            at = (torch.from_numpy(gi[sel] - g0).to(c.device),
+                  torch.from_numpy(ni[sel]).to(c.device))
+            for j, cr, kr, br in zip(sel.tolist(), c[at].cpu().numpy(),
+                                     kmask[at].cpu().numpy(), bits[at].cpu().numpy()):
+                chains[gi[j]][2][ni[j]] = cr
+                chains[gi[j]][3][ni[j]] = kr
+                chains[gi[j]][4][ni[j]] = br
+    timing.count("post.card_nodes", int((kind == 1).sum()) - len(gi))
     timing.count("post.fallback_nodes", len(gi))
-    return out, chains
+    return out, chains, kind
 
 
 def _posterior_window_group(group, out, chains, results, parent=None, plain=None):
     """The records of each window of the group into ``results``, from
     ``out`` (the posterior's rows, [G, N, row_width]) and ``chains`` (each
-    window's alpha and beta rows, indexed by node, which only fallback nodes
-    read).  With ``plain`` (alpha, beta and the posterior's other inputs as
-    CPU tensors) each window's ``posterior_`` fills ``out`` first, through
-    the plain version.  Each window is a span ``post.window`` (under
-    ``parent``), its per-node record loop a span ``post.records``."""
+    window's alpha, beta, c, kmask and bits rows, indexed by node, which
+    only fallback nodes read).  With ``plain`` (alpha, beta and the
+    posterior's other inputs as CPU tensors) each window's ``posterior_``
+    fills ``out`` first, through the plain version, and the chains are
+    ``plain``'s.  Each window is a span ``post.window`` (under ``parent``),
+    its per-node record loop a span ``post.records``."""
+    if plain is not None:
+        chains = list(zip(*(a.numpy() for a in (plain[0], plain[1], plain[6],
+                                                 plain[8], plain[9]))))
     for wi, prep in enumerate(group):
         with timing.span("post.window", parent=parent, chrom=prep.chrom,
                          nodes=len(prep.node_refs)):
@@ -814,7 +838,8 @@ def _posterior_window_group(group, out, chains, results, parent=None, plain=None
 def _posterior_window(prep, out_w, chains_w, results):
     """One window's records (genotype.cpp:1371-1546) from its posterior
     rows ``out_w`` and, for its fallback nodes, their alpha and beta rows
-    ``chains_w[0][node]``, ``chains_w[1][node]``."""
+    ``chains_w[0][node]``, ``chains_w[1][node]`` and their k-mer rows, c,
+    kmask and the used haps' words, ``chains_w[2..4][node]``."""
     n = len(prep.node_refs)
     if n == 0:
         return
@@ -835,12 +860,14 @@ def _posterior_window(prep, out_w, chains_w, results):
             si = win[ni]
             if si == FALLBACK:
                 # NAK/CAK of every used hap, for this node alone
-                hits = prep.bits_u[ni] * prep.kmask[ni, :, None]
+                c_k, kmask_k, bits_k = (chains_w[j][ni] for j in (2, 3, 4))
+                hits = unpack_words(bits_k) * kmask_k[:, None]
                 post = post_rows(chains_w[0][ni][None, :s],
                                  chains_w[1][ni][None, :s])[0]
                 _posterior_string_fallback(
                     rec_out, prep, post, node, hits.sum(axis=0),
-                    (prep.c[ni, :, None] * hits).sum(axis=0), uk[ni], hap2u,
+                    (c_k[:, None].astype(np.int64) * hits).sum(axis=0), uk[ni],
+                    hap2u,
                 )
             else:
                 rec_out.probability = prob[ni]

@@ -142,13 +142,13 @@ def genotype_one_sample(
                 func="genotype")
             cfg.engine = "np"
         with timing.span("phase.scoring") as sp:
-            host_arrays = (cov_u8, freq, hap_words, gi.table.refflag_np())
             if cfg.engine == "np":
+                host_arrays = (cov_u8, freq, hap_words, gi.table.refflag_np())
                 results = genotype_np(gi, cfg, hap_cov, cfg.seed, host_arrays)
             else:
                 from .engine_torch import genotype_torch
 
-                results = genotype_torch(gi, cfg, hap_cov, cfg.seed, host_arrays,
+                results = genotype_torch(gi, cfg, hap_cov, cfg.seed,
                                          device=cfg.torch_device(), mesh=mesh)
         log(f"phase timing: scoring {sp.seconds:.2f}s",
             func="genotype_one_sample")

@@ -22,6 +22,9 @@ class GraphIndex:
     graph: GenomeGraph                        # host node data (seqs, GTs, kmers)
     table: KmerTable                          # k-mer table (keys/cov on device)
     stats: VariantStats = field(default_factory=VariantStats)
+    # the genotype window prep's copies of the table and the CSR on the
+    # table's device (``ops/prep.PrepTables``), made at the first genotype
+    prep_tables: object = field(default=None, repr=False)
 
     @property
     def nhap(self) -> int:
